@@ -1,0 +1,154 @@
+"""PAN digit-cell preparation: the CUDA kernel and its plain version.
+
+The kernel, csrc/digit_prep.cu, replaces the Pallas TPU kernel
+cardio_dmz_tpu/ops/pallas/digit_prep.py (prepare_digit_cells_pallas /
+_digit_prep_kernel): for every stream and each of its 16 hseg offsets it
+crops a 27x19 cell from the 27x428 PAN strip, takes the cross morph
+gradient clamped at the cell border, histogram-equalizes it and divides by
+255. One thread block per (cell, stream), with the cell, the histogram and
+its prefix sum in shared memory.
+
+What bounds it on an H100: bytes and launch latency, not arithmetic. Per
+stream it reads about 12 KB of strip (27x428 u8) and writes 33 KB
+(16x27x19 f32); at 256 streams that is ~11 MB, a few microseconds of HBM
+time, so at the serving sizes the launch and each block's serial
+histogram/scan latency dominate. Packing several cells per block and
+fusing the output into the first conv GEMM are later work.
+
+On the serving path on a GPU this kernel is the route for CUDA tensors.
+(On the TPU the JAX package keeps its kernel off for serving, because its
+grid runs serially per stream under vmap; blocks on a GPU run in
+parallel.)
+
+The library is built on first use with nvcc, from csrc/ only, into
+cardio_dmz_tpu_torch/_build/, and bound with ctypes.
+"""
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import torch
+
+from ...constants import CARD_WIDTH, NUMBER_HEIGHT, NUMBER_WIDTH
+from ..morph import morph_grad3_2d_cross_u8
+from ..stats import equalize_hist
+
+N_CELLS = 16
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+SOURCE = os.path.join(_PKG, "csrc", "digit_prep.cu")
+LIBRARY = os.path.join(_PKG, "_build", "libdigit_prep.so")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Launches of the CUDA kernel since the last reset; the plain version does
+# not count.
+LAUNCHES = 0
+
+_LOCK = threading.Lock()
+_LIB = None
+
+
+def _nvcc():
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+
+
+def build():
+    """Compile csrc/digit_prep.cu into LIBRARY and return nvcc's output
+    (the -Xptxas -v register and shared-memory report)."""
+    os.makedirs(os.path.dirname(LIBRARY), exist_ok=True)
+    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, LIBRARY)
+    return proc.stdout + proc.stderr
+
+
+def _lib():
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            if (not os.path.exists(LIBRARY) or
+                    os.path.getmtime(LIBRARY) < os.path.getmtime(SOURCE)):
+                build()
+            lib = ctypes.CDLL(LIBRARY)
+            lib.digit_prep_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p]
+            lib.digit_prep_launch.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
+
+
+def _check(strip, offsets):
+    if strip.dtype != torch.uint8 or offsets.dtype != torch.int32:
+        raise TypeError(f"strip must be uint8 and offsets int32; got "
+                        f"{strip.dtype} and {offsets.dtype}")
+    s = strip.shape[0]
+    if (strip.shape != (s, NUMBER_HEIGHT, CARD_WIDTH)
+            or offsets.shape != (s, N_CELLS)):
+        raise ValueError(f"want strip (S, 27, 428) and offsets (S, 16); got "
+                         f"{tuple(strip.shape)} and {tuple(offsets.shape)}")
+    if strip.device != offsets.device:
+        raise ValueError(f"strip on {strip.device}, offsets on "
+                         f"{offsets.device}")
+    if not (strip.is_contiguous() and offsets.is_contiguous()):
+        raise ValueError("strip and offsets must be contiguous")
+
+
+def prepare_cells(cells):
+    """morph grad -> equalize -> [0, 1] f32 (n_categorize.cpp:96-99).
+    cells: (..., 27, 19) u8 -> same shape f32."""
+    eq = equalize_hist(morph_grad3_2d_cross_u8(cells)).to(torch.float32)
+    # A true division, as the kernel and the JAX package divide: torch
+    # multiplies by the reciprocal when the divisor is a Python number on a
+    # CUDA tensor, which can differ in the last bit.
+    return eq / torch.tensor(255.0, device=eq.device)
+
+
+def prepare_digit_cells_reference(strip, offsets):
+    """The plain PyTorch version: gather the 16 cells at their offsets
+    (clipped to [0, 409]), then prepare_cells.
+    strip: (S, 27, 428) u8; offsets: (S, 16) int32 -> (S, 16, 27, 19) f32."""
+    off = offsets.to(torch.int64).clamp(0, CARD_WIDTH - NUMBER_WIDTH)
+    cols = off[:, :, None] + torch.arange(NUMBER_WIDTH, device=strip.device)
+    s = strip.shape[0]
+    cells = torch.gather(
+        strip[:, None].expand(s, N_CELLS, NUMBER_HEIGHT, CARD_WIDTH), 3,
+        cols[:, :, None, :].expand(s, N_CELLS, NUMBER_HEIGHT, NUMBER_WIDTH))
+    return prepare_cells(cells)
+
+
+def prepare_digit_cells(strip, offsets):
+    """All 16 digit cells of every stream, cropped and prepared.
+
+    strip: (S, 27, 428) uint8; offsets: (S, 16) int32 cell left edges.
+    Returns (S, 16, 27, 19) float32. A CUDA tensor goes through the CUDA
+    kernel; a CPU tensor through the plain version."""
+    global LAUNCHES
+    _check(strip, offsets)
+    if strip.device.type == "cpu":
+        return prepare_digit_cells_reference(strip, offsets)
+    if strip.device.type != "cuda":
+        raise ValueError(f"no digit-prep route for {strip.device}")
+    s = strip.shape[0]
+    out = torch.empty((s, N_CELLS, NUMBER_HEIGHT, NUMBER_WIDTH),
+                      dtype=torch.float32, device=strip.device)
+    if s == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(strip.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.digit_prep_launch(strip.data_ptr(), offsets.data_ptr(),
+                                   out.data_ptr(), s, stream)
+    if rc != 0:
+        raise RuntimeError(f"digit_prep_launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,4 @@
+from .vseg import VSeg, best_n_vseg  # noqa: F401
+from .hseg import HSeg, best_n_hseg  # noqa: F401
+from .categorize import number_scores  # noqa: F401
+from .frame import FrameResult, scan_card_image  # noqa: F401

@@ -1,0 +1,9 @@
+from .state import (  # noqa: F401
+    ScannerResult,
+    ScannerState,
+    scan_frames,
+    scanner_add_frame,
+    scanner_reset,
+    scanner_result,
+    scanner_step,
+)

@@ -1,0 +1,220 @@
+"""Cross-frame scanner session state machine (scan/scan.cpp), stream-major.
+
+Counterpart of the JAX package's session/state.py for the PAN-only path.
+Every field of ScannerState carries a leading stream axis S, and every
+function steps all streams at once; a fold over time is a Python loop.
+
+Semantics mirrored from the C++:
+* per-frame EWMA of score matrices, decay 0.8, into separate 15- and
+  16-digit accumulators (scan.cpp:69-85)
+* completion: >= 3-frame lead AND 2x count ratio between the 15/16
+  hypotheses (scan.cpp:99-111), per-digit stability max/sum >= 0.7
+  (scan.cpp:128-147), BIN-prefix and Luhn validation (scan.cpp:149-160)
+* once complete, the result latches (scan.cpp:95-97)
+
+PAN-only: the in-graph expiry read is the next slice of the port, so a
+session completes as soon as its number is accepted, and the expiry
+fields of the state keep their initial values.
+"""
+
+import typing
+
+import torch
+
+from ..constants import MIN_FRAME_LEAD, PAN_DECAY_FACTOR, PAN_MIN_STABILITY
+from ..scan.expiry_device import ExpiryState, expiry_state_init
+from ..scan.frame import FrameResult, scan_card_image
+from ..utils.olm import card_type_valid, luhn_checksum
+from .analytics import ScanAnalytics, analytics_init, analytics_record_frame
+
+
+class ScannerState(typing.NamedTuple):
+    count15: torch.Tensor           # (S,) int32
+    count16: torch.Tensor           # (S,) int32
+    aggregated15: torch.Tensor      # (S, 16, 10) f32 (row 15 unused)
+    aggregated16: torch.Tensor      # (S, 16, 10) f32
+    # most recent usable segmentation (scan.cpp:71-72)
+    last_offsets: torch.Tensor      # (S, 16) int32
+    last_n_offsets: torch.Tensor    # (S,) int32
+    last_number_width: torch.Tensor  # (S,) f32
+    last_pattern_offset: torch.Tensor  # (S,) int32
+    last_vseg_y: torch.Tensor       # (S,) int32
+    last_vseg_pattern: torch.Tensor  # (S,) int32
+    # completion latch (scan.cpp:95-97,158-159)
+    number_complete: torch.Tensor   # (S,) bool
+    completed_digits: torch.Tensor  # (S, 16) int32
+    completed_n: torch.Tensor       # (S,) int32
+    frames_since_complete: torch.Tensor  # (S,) int32
+    # expiry (filled by the in-graph expiry read, not yet ported)
+    scan_expiry: torch.Tensor       # (S,) bool
+    expiry_month: torch.Tensor      # (S,) int32
+    expiry_year: torch.Tensor       # (S,) int32
+    expiry: ExpiryState
+    now_year: torch.Tensor          # (S,) int32 (date for expiry sanity)
+    now_month: torch.Tensor         # (S,) int32
+    analytics: ScanAnalytics
+
+
+class ScannerResult(typing.NamedTuple):
+    """ScannerResult (scan/scan.h:19-31), one row per stream."""
+    complete: torch.Tensor      # (S,) bool
+    n_numbers: torch.Tensor     # (S,) int32
+    predictions: torch.Tensor   # (S, 16) int32 digit values
+    expiry_month: torch.Tensor  # (S,) int32
+    expiry_year: torch.Tensor   # (S,) int32
+
+
+def scanner_reset(now, n_streams, device) -> ScannerState:
+    """scanner_reset (scan.cpp:23-35) for n_streams fresh sessions.
+    now = (year, month), the date for the expiry sanity window (the
+    reference reads the wall clock, expiry_categorize.cpp:352-354)."""
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros((n_streams,) + shape, dtype=dtype, device=device)
+
+    def full(v):
+        return torch.full((n_streams,), int(v), dtype=torch.int32,
+                          device=device)
+
+    return ScannerState(
+        count15=zeros(), count16=zeros(),
+        aggregated15=zeros(16, 10, dtype=torch.float32),
+        aggregated16=zeros(16, 10, dtype=torch.float32),
+        last_offsets=zeros(16),
+        last_n_offsets=zeros(),
+        last_number_width=zeros(dtype=torch.float32),
+        last_pattern_offset=zeros(),
+        last_vseg_y=zeros(),
+        last_vseg_pattern=zeros(),
+        number_complete=zeros(dtype=torch.bool),
+        completed_digits=zeros(16),
+        completed_n=zeros(),
+        frames_since_complete=zeros(),
+        scan_expiry=zeros(dtype=torch.bool),
+        expiry_month=zeros(),
+        expiry_year=zeros(),
+        expiry=expiry_state_init(n_streams, device),
+        now_year=full(now[0]),
+        now_month=full(now[1]),
+        analytics=analytics_init(n_streams, device),
+    )
+
+
+def _select(mask, a, b):
+    """Per stream: a where mask (S,) is set, else b; field by field through
+    nested NamedTuples."""
+    if isinstance(a, tuple):
+        return type(a)(*(_select(mask, x, y) for x, y in zip(a, b)))
+    return torch.where(mask.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
+def _stack(items, dim):
+    """Stack a list of equal-shaped (nested) NamedTuples of tensors."""
+    if isinstance(items[0], tuple):
+        return type(items[0])(*(_stack(list(f), dim) for f in zip(*items)))
+    return torch.stack(items, dim)
+
+
+def _accumulate(state: ScannerState, frame: FrameResult) -> ScannerState:
+    """EWMA update as for a usable frame (scan.cpp:69-85)."""
+    is15 = frame.hseg.n_offsets == 15
+    is16 = frame.hseg.n_offsets == 16
+
+    def decayed(agg, active):
+        upd = agg * PAN_DECAY_FACTOR + frame.scores * (1 - PAN_DECAY_FACTOR)
+        return torch.where(active[:, None, None], upd, agg)
+
+    return state._replace(
+        aggregated15=decayed(state.aggregated15, is15),
+        aggregated16=decayed(state.aggregated16, is16),
+        count15=state.count15 + is15.to(torch.int32),
+        count16=state.count16 + is16.to(torch.int32),
+        last_offsets=frame.hseg.offsets,
+        last_n_offsets=frame.hseg.n_offsets,
+        last_number_width=frame.hseg.number_width,
+        last_pattern_offset=frame.hseg.pattern_offset,
+        last_vseg_y=frame.vseg.y_offset,
+        last_vseg_pattern=frame.vseg.pattern_type,
+    )
+
+
+def scanner_add_frame(params, state: ScannerState, y):
+    """scanner_add_frame_with_expiry (scan.cpp:41-86): run the frame
+    pipeline and fold the result into every stream's session.
+    y: (S, 270, 428) uint8. Returns (new_state, FrameResult)."""
+    still_need_number = ~state.number_complete
+    frame = scan_card_image(params, y)
+    state = state._replace(analytics=analytics_record_frame(
+        state.analytics, frame, ~frame.upside_down))
+    fold = frame.usable & ~frame.upside_down & still_need_number
+    state = _select(fold, _accumulate(state, frame), state)
+    state = state._replace(frames_since_complete=torch.where(
+        state.number_complete, state.frames_since_complete + 1, 0))
+    return state, frame
+
+
+def _try_complete(state: ScannerState):
+    """The acceptance decision (scan.cpp:99-160). Returns
+    (accept (S,) bool, digits (S, 16) int32, n (S,) int32)."""
+    c15, c16 = state.count15, state.count16
+    max_c = torch.maximum(c15, c16)
+    min_c = torch.minimum(c15, c16)
+    lead_ok = (max_c - min_c >= MIN_FRAME_LEAD) & (min_c * 2 <= max_c)
+
+    use15 = c15 > c16
+    aggregated = torch.where(use15[:, None, None], state.aggregated15,
+                             state.aggregated16)
+    n = torch.where(use15, 15, 16).to(torch.int32)
+
+    digits = torch.argmax(aggregated, dim=-1).to(torch.int32)   # (S, 16)
+    row_max = aggregated.amax(dim=-1)
+    row_sum = aggregated.sum(dim=-1)
+    stability = row_max / torch.where(row_sum > 0, row_sum, 1.0)
+    active = torch.arange(16, device=n.device) < n[:, None]
+    stable = torch.where(active, stability >= PAN_MIN_STABILITY, True).all(1)
+
+    accept = (lead_ok & stable & luhn_checksum(digits, n)
+              & card_type_valid(digits, n))
+    return accept, digits, n
+
+
+def scanner_result(state: ScannerState):
+    """scanner_result (scan.cpp:88-194). Completion latches into the
+    state, so callers thread the returned state.
+    Returns (new_state, ScannerResult)."""
+    accept, digits, n = _try_complete(state)
+    newly = accept & ~state.number_complete
+    state = state._replace(
+        number_complete=state.number_complete | accept,
+        completed_digits=torch.where(newly[:, None], digits,
+                                     state.completed_digits),
+        completed_n=torch.where(newly, n, state.completed_n),
+    )
+    result = ScannerResult(
+        complete=state.number_complete,
+        n_numbers=state.completed_n,
+        predictions=state.completed_digits,
+        expiry_month=torch.zeros_like(state.expiry_month),
+        expiry_year=torch.zeros_like(state.expiry_year),
+    )
+    return state, result
+
+
+def scanner_step(params, state: ScannerState, y):
+    """One frame for every stream: add_frame + result.
+    Returns (state, (FrameResult, ScannerResult))."""
+    state, frame = scanner_add_frame(params, state, y)
+    state, result = scanner_result(state)
+    return state, (frame, result)
+
+
+def scan_frames(params, frames, now):
+    """Fold (S, T, 270, 428) frames through S fresh sessions, one step per
+    frame. Returns (final_state, (FrameResults, ScannerResults)), the
+    per-frame results stacked as (S, T, ...)."""
+    state = scanner_reset(now, frames.shape[0], frames.device)
+    per_frame = []
+    for t in range(frames.shape[1]):
+        state, out = scanner_step(params, state, frames[:, t])
+        per_frame.append(out)
+    frame_results, results = zip(*per_frame)
+    return state, (_stack(list(frame_results), 1), _stack(list(results), 1))

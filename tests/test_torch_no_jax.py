@@ -1,0 +1,36 @@
+"""The port runs with jax made unimportable, and never imports the JAX
+package."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = """
+import sys
+sys.modules["jax"] = None                      # any `import jax` now fails
+import numpy as np
+import torch
+import cardio_dmz_tpu_torch as port
+
+params = port.load_all_params("cpu")
+states = port.init_stream_states(2, "cpu", (2026, 1))
+frames = torch.from_numpy(np.random.RandomState(0).randint(
+    0, 256, (2, 270, 428)).astype(np.uint8))
+states, (frame, result) = port.batched_scanner_step(params, states, frames)
+assert frame.scores.shape == (2, 16, 10)
+assert result.complete.shape == (2,)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("cardio_dmz_tpu", "jaxlib"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -1,0 +1,113 @@
+"""The port's vseg, hseg, number_scores and scan_card_image against the
+JAX package's on rendered cards, an upside-down card, a blank card and
+uniform noise.
+
+Each stage of the port gets the JAX package's own inputs to that stage
+(the JAX strip, offsets and pattern), so that a difference points at the
+stage that made it. Discrete outputs are exact; scores are within 1e-5
+(models) or rtol 1e-5 (vseg/hseg sums, taken in another order)."""
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import synthetic
+from cardio_dmz_tpu.scan import scan_card_image as jax_scan
+from cardio_dmz_tpu_torch.scan import (
+    best_n_hseg, best_n_vseg, number_scores, scan_card_image)
+from torch_parity import assert_same, np_params, port_params, to_np
+
+
+def _visa(pan, y0, width, offset, seed, noise=1):
+    return lambda: synthetic.render_frame(pan, y0=y0, width=width,
+                                          offset=offset, seed=seed,
+                                          noise=noise)
+
+
+CASES = {
+    "visa_150": _visa("4111111111111111", 150, 18.0, 35, 0),
+    "visa_155_wide": _visa("4530504390541813", 155, 18.5, 30, 1),
+    "visa_140_narrow": _visa("4267267267267263", 140, 17.5, 40, 2, noise=2),
+    "upside_down": _visa("4111111111111111", 60, 18.0, 35, 0),
+    "blank": lambda: np.clip(140 + np.random.RandomState(0).randint(
+        -2, 3, (270, 428)), 0, 255).astype(np.uint8),
+    "noise": lambda: np.random.RandomState(1).randint(
+        0, 256, (270, 428)).astype(np.uint8),
+}
+NAMES = sorted(CASES)
+
+
+@functools.lru_cache(maxsize=None)
+def _frames():
+    return np.stack([CASES[n]() for n in NAMES])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_results():
+    params = np_params()
+    run = jax.jit(jax.vmap(lambda y: jax_scan(params, y)))
+    return jax.tree.map(np.array, run(_frames()))
+
+
+def _case(name):
+    """(frame (270, 428), the JAX FrameResult of that frame)."""
+    i = NAMES.index(name)
+    return _frames()[i], jax.tree.map(lambda a: a[i:i + 1], _jax_results())
+
+
+def _jax_strip(frame, jr):
+    y = int(np.clip(jr.vseg.y_offset[0], 0, 243))
+    return torch.from_numpy(np.ascontiguousarray(frame[y:y + 27]))[None]
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_vseg(name):
+    frame, jr = _case(name)
+    got = best_n_vseg(port_params()["vseg_mlp"], torch.from_numpy(frame)[None])
+    assert_same(jr.vseg, got, atol=0.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_hseg(name):
+    frame, jr = _case(name)
+    got = best_n_hseg(_jax_strip(frame, jr),
+                      torch.from_numpy(jr.vseg.pattern_type),
+                      torch.from_numpy(jr.vseg.number_length))
+    assert_same(jr.hseg, got, atol=0.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_number_scores(name):
+    frame, jr = _case(name)
+    got = to_np(number_scores(port_params(), _jax_strip(frame, jr),
+                              torch.from_numpy(jr.hseg.offsets),
+                              torch.from_numpy(jr.hseg.n_offsets)))
+    np.testing.assert_allclose(got, jr.scores, atol=1e-5)
+    n = int(jr.hseg.n_offsets[0])
+    np.testing.assert_array_equal(got[0, :n].argmax(-1),
+                                  jr.scores[0, :n].argmax(-1))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_scan_card_image(name):
+    frame, jr = _case(name)
+    got = scan_card_image(port_params(), torch.from_numpy(frame)[None])
+    assert_same(jr, got, atol=1e-5, rtol=1e-5)
+
+
+def test_batch_equals_single_frames():
+    params = port_params()
+    batch = scan_card_image(params, torch.from_numpy(_frames()))
+    for i in range(len(NAMES)):
+        one = scan_card_image(params, torch.from_numpy(_frames()[i:i + 1]))
+        assert_same(jax.tree.map(lambda t: to_np(t)[i:i + 1], batch), one,
+                    atol=1e-6)
+
+
+def test_scan_expiry_is_not_ported_yet():
+    with pytest.raises(NotImplementedError):
+        scan_card_image(port_params(), torch.from_numpy(_frames()[:1]),
+                        scan_expiry=True)
