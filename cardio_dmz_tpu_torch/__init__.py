@@ -7,13 +7,18 @@ where the JAX package has Pallas kernels (ops/cuda/). It imports torch and
 numpy, never jax and never cardio_dmz_tpu; it reads the model weights
 from cardio_dmz_tpu/models/params/ by path.
 
-What exists: the PAN-only serving path, vseg -> hseg -> digit prep (CUDA
-kernel) + 3-model conv ensemble -> frame gates -> session EWMA and
-Luhn/BIN acceptance, batched over streams (parallel/streams.py).
+What exists, batched over streams (parallel/streams.py):
+* the PAN-only serving path on rectified cards: vseg -> hseg -> digit
+  prep (CUDA kernel) + 3-model conv ensemble -> frame gates -> session
+  EWMA and Luhn/BIN acceptance (batched_scanner_step);
+* the camera path in front of it: edge detection on 12 bands -> the
+  exact Eigen-QR homography (CUDA kernel) -> the exact cvWarpPerspective
+  warp (CUDA kernel) -> the PAN scan (batched_camera_step).
 """
 
 from . import (  # noqa: F401
-    constants, models, ops, parallel, scan, session, utils)
+    api, constants, models, ops, parallel, scan, session, utils)
 from .models import load_all_params  # noqa: F401
-from .parallel import batched_scanner_step, init_stream_states  # noqa: F401
+from .parallel import (  # noqa: F401
+    batched_camera_step, batched_scanner_step, init_stream_states)
 from .session import scan_frames  # noqa: F401

@@ -21,70 +21,26 @@ grid runs serially per stream under vmap; blocks on a GPU run in
 parallel.)
 
 The library is built on first use with nvcc, from csrc/ only, into
-cardio_dmz_tpu_torch/_build/, and bound with ctypes.
+cardio_dmz_tpu_torch/_build/, and bound with ctypes (ops/cuda/_build.py).
 """
 
 import ctypes
-import os
-import subprocess
-import threading
 
 import torch
 
 from ...constants import CARD_WIDTH, NUMBER_HEIGHT, NUMBER_WIDTH
 from ..morph import morph_grad3_2d_cross_u8
 from ..stats import equalize_hist
+from ._build import CudaKernel
 
 N_CELLS = 16
 
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
-SOURCE = os.path.join(_PKG, "csrc", "digit_prep.cu")
-LIBRARY = os.path.join(_PKG, "_build", "libdigit_prep.so")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNEL = CudaKernel("digit_prep", "digit_prep_launch",
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
 
 # Launches of the CUDA kernel since the last reset; the plain version does
 # not count.
 LAUNCHES = 0
-
-_LOCK = threading.Lock()
-_LIB = None
-
-
-def _nvcc():
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-
-
-def build():
-    """Compile csrc/digit_prep.cu into LIBRARY and return nvcc's output
-    (the -Xptxas -v register and shared-memory report)."""
-    os.makedirs(os.path.dirname(LIBRARY), exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
-
-
-def _lib():
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            if (not os.path.exists(LIBRARY) or
-                    os.path.getmtime(LIBRARY) < os.path.getmtime(SOURCE)):
-                build()
-            lib = ctypes.CDLL(LIBRARY)
-            lib.digit_prep_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_void_p]
-            lib.digit_prep_launch.restype = ctypes.c_int
-            _LIB = lib
-        return _LIB
 
 
 def _check(strip, offsets):
@@ -143,12 +99,8 @@ def prepare_digit_cells(strip, offsets):
                       dtype=torch.float32, device=strip.device)
     if s == 0:
         return out
-    lib = _lib()
     with torch.cuda.device(strip.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.digit_prep_launch(strip.data_ptr(), offsets.data_ptr(),
-                                   out.data_ptr(), s, stream)
-    if rc != 0:
-        raise RuntimeError(f"digit_prep_launch failed: cudaError {rc}")
+        KERNEL.launch(strip.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+                      s, torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     return out

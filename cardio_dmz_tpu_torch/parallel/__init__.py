@@ -1,1 +1,2 @@
-from .streams import batched_scanner_step, init_stream_states  # noqa: F401
+from .streams import (  # noqa: F401
+    batched_camera_step, batched_scanner_step, init_stream_states)

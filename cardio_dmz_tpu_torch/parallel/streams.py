@@ -6,7 +6,8 @@ stream-major, so the batched step is scanner_step over the stream axis;
 the JAX package reaches the same shape with vmap.
 """
 
-from ..session.state import scanner_reset, scanner_step
+from ..constants import ORIENTATION_LANDSCAPE_RIGHT
+from ..session.state import camera_scanner_step, scanner_reset, scanner_step
 
 
 def init_stream_states(n_streams, device, now):
@@ -20,3 +21,13 @@ def batched_scanner_step(params, states, frames):
     the states' device. Returns (states, (FrameResult, ScannerResult)),
     all stream-major."""
     return scanner_step(params, states, frames)
+
+
+def batched_camera_step(params, states, y, cb, cr,
+                        orientation=ORIENTATION_LANDSCAPE_RIGHT):
+    """One camera -> digits step for every stream: edge detection, the
+    exact homography and warp, and the PAN scan, PAN-only. y: (S, 480,
+    640) u8; cb/cr: (S, 240, 320) u8 half-size chroma, on the states'
+    device. Returns (states, (found, FrameResult, ScannerResult))."""
+    return camera_scanner_step(params, states, y, cb, cr,
+                               orientation=orientation)

@@ -73,7 +73,8 @@ def pan_strip(y, y_offset):
     return torch.gather(y, 1, rows[:, :, None].expand(-1, -1, y.shape[2]))
 
 
-def scan_card_image(params, y, scan_expiry=False) -> FrameResult:
+def scan_card_image(params, y, scan_expiry=False,
+                    telemetry=None) -> FrameResult:
     """y: (S, 270, 428) uint8 rectified card luma; params: load_all_params().
 
     Gates of frame.cpp:24-81, collecting the card number:
@@ -81,14 +82,15 @@ def scan_card_image(params, y, scan_expiry=False) -> FrameResult:
     * usable iff vseg.score > 15 (frame.cpp:43)
     * and n_offsets - sum(scores) < 3 (frame.cpp:63-64)
 
-    The telemetry fields are zeros: the camera path that fills them is
-    not ported yet. scan_expiry=True (the in-graph expiry read) is the
-    next slice of the port.
+    telemetry: the camera's FrameTelemetry, carried into the result; zeros
+    when None. scan_expiry=True (the in-graph expiry read) is a later
+    slice of the port.
     """
     if scan_expiry:
-        raise NotImplementedError("slice 2")
+        raise NotImplementedError("the in-graph expiry read is not ported")
     n_streams, device = y.shape[0], y.device
-    telemetry = telemetry_zeros(n_streams, device)
+    if telemetry is None:
+        telemetry = telemetry_zeros(n_streams, device)
     vseg = best_n_vseg(params["vseg_mlp"], y)
 
     upside_down = vseg.y_offset < FLIP_VSEG_Y_OFFSET_CUTOFF

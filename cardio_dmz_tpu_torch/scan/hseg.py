@@ -33,6 +33,7 @@ from ..constants import (
     PATTERN_MASKS,
 )
 from ..ops import morph_grad3_2d_cross_u8
+from ..ops.prefix import cumsum
 
 
 class HSeg(typing.NamedTuple):
@@ -240,7 +241,7 @@ def best_n_hseg(y_strip, pattern_type, number_length) -> HSeg:
     dev = y_strip.device
     pat = (pattern_type == 2).long()                          # (S,)
     gs = grad_profile(y_strip)                                # (S, 428)
-    cums = torch.nn.functional.pad(torch.cumsum(gs, dim=1), (1, 0))
+    cums = torch.nn.functional.pad(cumsum(gs), (1, 0))   # ops/prefix.py
     gs_pad = torch.nn.functional.pad(gs, (0, _O_FULL))         # zero past 428
     cols = torch.arange(CARD_WIDTH, device=dev)
 

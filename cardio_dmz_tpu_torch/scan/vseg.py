@@ -25,6 +25,7 @@ from ..constants import (
     VSEG_WINDOW,
 )
 from ..ops import lineardown2_1d_u8, morph_grad3_1d_u8, norm_convert_minmax
+from ..ops.prefix import cumsum
 
 N_WINDOWS = CARD_HEIGHT - VSEG_WINDOW + 1  # 244
 
@@ -59,8 +60,10 @@ def vseg_row_probabilities(vseg_mlp, y):
 def best_n_vseg(vseg_mlp, y) -> VSeg:
     """y: (S, 270, 428) uint8."""
     probs = vseg_row_probabilities(vseg_mlp, y)            # (S, 270, 3)
-    c = torch.nn.functional.pad(torch.cumsum(probs[..., 1:], dim=1),
-                                (0, 0, 1, 0))              # (S, 271, 2)
+    # prefix sums of [0, p0, p1, ...] per pattern, in the JAX package's
+    # order (ops/prefix.py): a near-tie between windows breaks as there
+    c = cumsum(torch.nn.functional.pad(probs[..., 1:].transpose(1, 2),
+                                       (1, 0))).transpose(1, 2)  # (S, 271, 2)
     windows = c[:, VSEG_WINDOW:] - c[:, :-VSEG_WINDOW]     # (S, 244, 2)
     # first max of [vis0, amex0, vis1, amex1, ...]
     flat = windows.reshape(windows.shape[0], -1)

@@ -1,6 +1,7 @@
 from .state import (  # noqa: F401
     ScannerResult,
     ScannerState,
+    camera_scanner_step,
     scan_frames,
     scanner_add_frame,
     scanner_reset,

@@ -1,8 +1,9 @@
 """Cross-frame scanner session state machine (scan/scan.cpp), stream-major.
 
-Counterpart of the JAX package's session/state.py for the PAN-only path.
-Every field of ScannerState carries a leading stream axis S, and every
-function steps all streams at once; a fold over time is a Python loop.
+Counterpart of the JAX package's session/state.py for the PAN-only path
+and the camera step in front of it. Every field of ScannerState carries a
+leading stream axis S, and every function steps all streams at once; a
+fold over time is a Python loop.
 
 Semantics mirrored from the C++:
 * per-frame EWMA of score matrices, decay 0.8, into separate 15- and
@@ -21,9 +22,15 @@ import typing
 
 import torch
 
-from ..constants import MIN_FRAME_LEAD, PAN_DECAY_FACTOR, PAN_MIN_STABILITY
+from ..api import brightness_score, focus_score, preprocess_frame
+from ..constants import (
+    MIN_FRAME_LEAD,
+    ORIENTATION_LANDSCAPE_RIGHT,
+    PAN_DECAY_FACTOR,
+    PAN_MIN_STABILITY,
+)
 from ..scan.expiry_device import ExpiryState, expiry_state_init
-from ..scan.frame import FrameResult, scan_card_image
+from ..scan.frame import FrameResult, scan_card_image, telemetry_zeros
 from ..utils.olm import card_type_valid, luhn_checksum
 from .analytics import ScanAnalytics, analytics_init, analytics_record_frame
 
@@ -137,14 +144,25 @@ def _accumulate(state: ScannerState, frame: FrameResult) -> ScannerState:
     )
 
 
-def scanner_add_frame(params, state: ScannerState, y):
+def scanner_add_frame(params, state: ScannerState, y, telemetry=None,
+                      frame_gate=None):
     """scanner_add_frame_with_expiry (scan.cpp:41-86): run the frame
     pipeline and fold the result into every stream's session.
-    y: (S, 270, 428) uint8. Returns (new_state, FrameResult)."""
+
+    y: (S, 270, 428) uint8. telemetry: optional FrameTelemetry (camera
+    metadata, frame.h:15-27). frame_gate: optional (S,) bool, the camera
+    path's "card was found": where it is False the frame is unusable and
+    goes unrecorded, as the reference's host app never calls
+    scanner_add_frame for a frame whose detection failed.
+    Returns (new_state, FrameResult)."""
     still_need_number = ~state.number_complete
-    frame = scan_card_image(params, y)
+    frame = scan_card_image(params, y, telemetry=telemetry)
+    record = ~frame.upside_down
+    if frame_gate is not None:
+        frame = frame._replace(usable=frame.usable & frame_gate)
+        record = record & frame_gate
     state = state._replace(analytics=analytics_record_frame(
-        state.analytics, frame, ~frame.upside_down))
+        state.analytics, frame, record))
     fold = frame.usable & ~frame.upside_down & still_need_number
     state = _select(fold, _accumulate(state, frame), state)
     state = state._replace(frames_since_complete=torch.where(
@@ -199,12 +217,34 @@ def scanner_result(state: ScannerState):
     return state, result
 
 
-def scanner_step(params, state: ScannerState, y):
+def scanner_step(params, state: ScannerState, y, telemetry=None,
+                 frame_gate=None):
     """One frame for every stream: add_frame + result.
     Returns (state, (FrameResult, ScannerResult))."""
-    state, frame = scanner_add_frame(params, state, y)
+    state, frame = scanner_add_frame(params, state, y, telemetry=telemetry,
+                                     frame_gate=frame_gate)
     state, result = scanner_result(state)
     return state, (frame, result)
+
+
+def camera_scanner_step(params, state: ScannerState, y, cb, cr,
+                        orientation=ORIENTATION_LANDSCAPE_RIGHT):
+    """Camera frame -> digits for every stream: the reference's
+    per-preview-frame host loop (dmz_detect_edges + dmz_transform_card,
+    dmz.cpp:371-497, then scanner_add_frame) in one step.
+
+    y: (S, 480, 640) u8 luma; cb/cr: (S, 240, 320) u8 half-size chroma.
+    The frame's focus and brightness go into its telemetry; the camera
+    metadata fields stay zero. A frame where the card is not found
+    contributes nothing (frame_gate).
+    Returns (state, (found, FrameResult, ScannerResult))."""
+    found, card = preprocess_frame(y, cb, cr, orientation)
+    telemetry = telemetry_zeros(y.shape[0], y.device)._replace(
+        focus_score=focus_score(y), brightness_score=brightness_score(y))
+    state, (frame, result) = scanner_step(params, state, card,
+                                          telemetry=telemetry,
+                                          frame_gate=found)
+    return state, (found, frame, result)
 
 
 def scan_frames(params, frames, now):

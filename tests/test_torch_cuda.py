@@ -1,5 +1,6 @@
-"""The port on an NVIDIA card: the digit-prep CUDA kernel against its plain
-version, and the scan path on the card against the same path on the CPU.
+"""The port on an NVIDIA card: each CUDA kernel (digit prep, persp QR, warp
+gather) against its plain version, and the scan and camera paths on the
+card against the same paths on the CPU.
 
 These tests skip without a card. They import neither jax nor the JAX
 package, so they also run where only PyTorch is installed:
@@ -14,12 +15,36 @@ import pytest
 import torch
 
 import cardio_dmz_tpu_torch
+from cardio_dmz_tpu_torch.api import preprocess_frame
 from cardio_dmz_tpu_torch.models import load_all_params
-from cardio_dmz_tpu_torch.ops.cuda import digit_prep
+from cardio_dmz_tpu_torch.ops import warp_coord_maps
+from cardio_dmz_tpu_torch.ops.cuda import digit_prep, persp_qr, warp_gather
+from cardio_dmz_tpu_torch.parallel import (
+    batched_camera_step, init_stream_states)
 from cardio_dmz_tpu_torch.scan import scan_card_image
 from torch_parity import cuda_device  # noqa: F401
 
 pytestmark = pytest.mark.cuda
+
+DATA = os.path.join(os.path.dirname(cardio_dmz_tpu_torch.__file__), "data")
+CARD_DEST = torch.tensor([[0.0, 0.0], [427.0, 0.0], [0.0, 269.0],
+                          [427.0, 269.0]])
+# the guide rect in each warp corner order: landscape tl, tr, bl, br;
+# portrait bl, tl, br, tr
+GUIDE = {"landscape": [[106, 105], [534, 105], [106, 375], [534, 375]],
+         "portrait": [[185, 454], [185, 26], [455, 454], [455, 26]]}
+
+
+def _quads(orientation, n, seed):
+    """n detector-realistic quads, the guide rect +-12 px per corner."""
+    rng = np.random.RandomState(seed)
+    quads = np.float32(GUIDE[orientation])[None] + rng.uniform(
+        -12.0, 12.0, (n, 4, 2))
+    return torch.from_numpy(quads.astype(np.float32))
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
 
 
 @pytest.mark.parametrize("n_streams", [1, 256])
@@ -38,10 +63,97 @@ def test_kernel_matches_plain(cuda_device, n_streams):  # noqa: F811
         strips, offsets))
 
 
+@pytest.mark.parametrize("n_streams", [1, 256])
+def test_persp_kernel_matches_plain(cuda_device, n_streams):  # noqa: F811
+    """Bit for bit against the plain version on the card, NaN and inf
+    included: the quads, then degenerate sets (all zero, a repeated
+    corner, an inf and a NaN corner)."""
+    quads = _quads("landscape", n_streams, n_streams)
+    rep = quads[0].clone()
+    rep[1] = rep[0]
+    inf, nan = quads[0].clone(), quads[0].clone()
+    inf[3, 0], nan[0, 1] = float("inf"), float("nan")
+    src = torch.cat([quads, torch.stack([torch.zeros(4, 2), rep, inf, nan])])
+    src, dst = src.to(cuda_device), CARD_DEST.to(cuda_device)
+    before = persp_qr.LAUNCHES
+    got = persp_qr.eigen_persp_transform_batched(src, dst)
+    torch.cuda.synchronize()
+    assert persp_qr.LAUNCHES == before + 1
+    want = persp_qr.persp_transform_reference(src, dst)
+    assert torch.equal(_bits(got), _bits(want))
+    # against the CPU: the same bits except in a NaN's payload (x86 makes
+    # its default NaN negative, the card positive)
+    cpu = persp_qr.persp_transform_reference(src.cpu(), dst.cpu())
+    got = got.cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(cpu))
+    not_nan = ~torch.isnan(got)
+    assert torch.equal(_bits(got)[not_nan], _bits(cpu)[not_nan])
+    assert torch.isfinite(got[:n_streams]).all()
+
+
+@pytest.mark.parametrize("orientation", ["landscape", "portrait"])
+@pytest.mark.parametrize("n_streams", [1, 256])
+def test_warp_kernel_matches_plain(cuda_device, n_streams,  # noqa: F811
+                                   orientation):
+    """u8 for u8 on uniform noise through envelope quads; the portrait
+    warp reads the transposed frame with the maps swapped."""
+    rng = np.random.RandomState(n_streams)
+    image = torch.from_numpy(rng.randint(0, 256, (n_streams, 480, 640))
+                             .astype(np.uint8)).to(cuda_device)
+    m = persp_qr.eigen_persp_transform_batched(
+        _quads(orientation, n_streams, 7).to(cuda_device),
+        CARD_DEST.to(cuda_device))
+    xq, yq = warp_coord_maps(m, (270, 428))
+    if orientation == "portrait":
+        image, xq, yq = image.transpose(1, 2).contiguous(), yq, xq
+    before = warp_gather.LAUNCHES
+    got = warp_gather.warp_gather_exact(image, xq, yq)
+    torch.cuda.synchronize()
+    assert warp_gather.LAUNCHES == before + 1
+    assert torch.equal(got, warp_gather.warp_gather_reference(image, xq, yq))
+    assert torch.equal(got.cpu(), warp_gather.warp_gather_reference(
+        image.cpu(), xq.cpu(), yq.cpu()))
+
+
+def test_camera_step_on_card_matches_cpu(cuda_device):  # noqa: F811
+    """The camera fixture's first frames through the camera step on the
+    card and on the CPU: found flags and cards equal, scan fields equal,
+    digit scores within 1e-5, and both camera kernels launched."""
+    with np.load(os.path.join(DATA, "camera_session.npz")) as f:
+        planes = [torch.from_numpy(f[k][:, :3]) for k in ("y", "cb", "cr")]
+        now = tuple(f["now"].tolist())
+    runs = {}
+    launches = (warp_gather.LAUNCHES, persp_qr.LAUNCHES)
+    for dev in ("cpu", cuda_device):
+        params = load_all_params(dev)
+        state = init_stream_states(planes[0].shape[0], dev, now)
+        out = []
+        for t in range(3):
+            frame = [p[:, t].contiguous().to(dev) for p in planes]
+            found, card = preprocess_frame(*frame)
+            state, (found_step, fr, _) = batched_camera_step(params, state,
+                                                             *frame)
+            assert torch.equal(found, found_step)
+            out.append((found.cpu(), card.cpu(), fr))
+        runs[str(dev)] = out
+    torch.cuda.synchronize()
+    # the card's run: preprocess_frame and the step, 3 frames each
+    assert warp_gather.LAUNCHES == launches[0] + 6
+    assert persp_qr.LAUNCHES == launches[1] + 6
+    for (found, card, fr), (found_c, card_c, fr_c) in zip(
+            runs[str(cuda_device)], runs["cpu"]):
+        assert torch.equal(found, found_c) and found.all()
+        assert torch.equal(card, card_c)
+        for a, b in ((fr.vseg.y_offset, fr_c.vseg.y_offset),
+                     (fr.hseg.offsets, fr_c.hseg.offsets),
+                     (fr.usable, fr_c.usable)):
+            assert torch.equal(a.cpu(), b)
+        torch.testing.assert_close(fr.scores.cpu(), fr_c.scores, atol=1e-5,
+                                   rtol=0)
+
+
 def test_scan_on_card_matches_cpu(cuda_device):  # noqa: F811
-    fixture = os.path.join(os.path.dirname(cardio_dmz_tpu_torch.__file__),
-                           "data", "smoke_session.npz")
-    with np.load(fixture) as f:
+    with np.load(os.path.join(DATA, "smoke_session.npz")) as f:
         frames = torch.from_numpy(f["frames"][:, 0])
     cpu = scan_card_image(load_all_params("cpu"), frames)
     card = scan_card_image(load_all_params(cuda_device),

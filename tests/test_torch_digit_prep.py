@@ -77,7 +77,7 @@ def test_cpu_tensor_takes_plain_path_without_building():
     digit_prep.prepare_digit_cells(torch.from_numpy(strip)[None],
                                    torch.from_numpy(offsets)[None])
     assert digit_prep.LAUNCHES == before
-    assert digit_prep._LIB is None
+    assert not digit_prep.KERNEL.loaded
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity"])

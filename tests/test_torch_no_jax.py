@@ -1,5 +1,5 @@
 """The port runs with jax made unimportable, and never imports the JAX
-package."""
+package: the PAN-only step and the camera step."""
 
 import os
 import subprocess
@@ -21,6 +21,13 @@ frames = torch.from_numpy(np.random.RandomState(0).randint(
 states, (frame, result) = port.batched_scanner_step(params, states, frames)
 assert frame.scores.shape == (2, 16, 10)
 assert result.complete.shape == (2,)
+rng = np.random.RandomState(1)
+y = torch.from_numpy(rng.randint(0, 256, (2, 480, 640)).astype(np.uint8))
+cb, cr = (torch.from_numpy(rng.randint(0, 256, (2, 240, 320)).astype(
+    np.uint8)) for _ in range(2))
+states, (found, frame, result) = port.batched_camera_step(params, states, y,
+                                                          cb, cr)
+assert found.shape == (2,) and frame.scores.shape == (2, 16, 10)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("cardio_dmz_tpu", "jaxlib"))
 assert not leaked, leaked

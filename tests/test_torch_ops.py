@@ -53,3 +53,19 @@ def test_equalize_hist_maps_zero_to_zero():
     x[:, 0, :] = 0
     got = to_np(pops.equalize_hist(torch.from_numpy(x)))
     assert (got[x == 0] == 0).all()
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 271, 428])
+def test_prefix_cumsum_matches_jax_bits(n):
+    """ops.prefix.cumsum equals the JAX package's jitted jnp.cumsum bit for
+    bit (vseg sums windows of [0, p...] of 271, hseg of 428), on random
+    values and on saturated rows where every window ties."""
+    import jax
+    import jax.numpy as jnp
+    from cardio_dmz_tpu_torch.ops import prefix
+    rng = np.random.RandomState(n)
+    x = np.concatenate([rng.rand(5, n), np.full((1, n), 0.99987)]).astype(
+        np.float32)
+    want = np.asarray(jax.jit(lambda v: jnp.cumsum(v, axis=-1))(x))
+    got = to_np(prefix.cumsum(torch.from_numpy(x)))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))

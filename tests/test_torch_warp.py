@@ -1,0 +1,227 @@
+"""The homography, the coordinate maps and the exact warp of the port
+against the JAX package's, and the portrait camera preprocessing.
+
+* the persp-QR plain version against persp_host.persp_transform (what the
+  JAX package runs off the TPU) and the JAX function, on 200 seeded
+  corner sets and degenerate ones, bit for bit, NaN included;
+* the float64 coordinate maps against persp_host's real double and the
+  JAX package's double-float form, exactly;
+* the warp-gather plain version against warp_perspective_exact with the
+  detector envelope's windows (api.warp_src_bounds), u8-equal, landscape
+  and portrait. Quads come from that envelope: outside it the JAX forms
+  read 0 for taps beyond their windows.
+"""
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import torch_fixture as fx
+from cardio_dmz_tpu import api as japi
+from cardio_dmz_tpu.ops import persp as jpersp
+from cardio_dmz_tpu.ops import persp_host
+from cardio_dmz_tpu.ops import warp as jwarp
+from cardio_dmz_tpu_torch import api as papi
+from cardio_dmz_tpu_torch.constants import (
+    ORIENTATION_LANDSCAPE_RIGHT, ORIENTATION_PORTRAIT)
+from cardio_dmz_tpu_torch.ops import persp as ppersp
+from cardio_dmz_tpu_torch.ops import warp as pwarp
+from cardio_dmz_tpu_torch.ops.cuda import persp_qr, warp_gather
+from torch_parity import to_np
+
+OUT = (270, 428)
+# the guide rect's corners in each orientation's warp order (api.py
+# _CORNER_ORDER): landscape tl, tr, bl, br; portrait bl, tl, br, tr
+GUIDE = {
+    ORIENTATION_LANDSCAPE_RIGHT: np.float32([[106, 105], [534, 105],
+                                             [106, 375], [534, 375]]),
+    ORIENTATION_PORTRAIT: np.float32([[185, 454], [185, 26], [455, 454],
+                                      [455, 26]]),
+}
+
+
+def _bits(x):
+    return np.ascontiguousarray(np.asarray(x, np.float32)).view(np.int32)
+
+
+def _quads(orientation, n, seed, jitter=12.0):
+    """n detector-realistic quads: the guide rect +-jitter px per corner
+    (tests/test_pallas.py)."""
+    rng = np.random.RandomState(seed)
+    return (GUIDE[orientation][None]
+            + rng.uniform(-jitter, jitter, (n, 4, 2))).astype(np.float32)
+
+
+def _degenerate():
+    """Corner sets that break the solve: all zero (a frame where no card
+    was found), one corner repeated, three collinear, a line, inf, NaN."""
+    g = GUIDE[ORIENTATION_LANDSCAPE_RIGHT]
+    rep = g.copy()
+    rep[1] = rep[0]
+    col = g.copy()
+    col[2] = (col[0] + col[1]) / 2
+    line = np.float32([[0, 0], [1, 1], [2, 2], [3, 3]])
+    inf = g.copy()
+    inf[3, 0] = np.inf
+    nan = g.copy()
+    nan[0, 1] = np.nan
+    return np.stack([np.zeros((4, 2), np.float32), rep, col, line, inf,
+                     nan])
+
+
+CARD_DEST = fx.CARD_DEST
+
+
+def _port_persp(src):
+    return to_np(persp_qr.eigen_persp_transform_batched(
+        torch.from_numpy(src), torch.from_numpy(CARD_DEST)))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_persp_plain_matches_persp_host(seed):
+    """50 corner sets a seed (200 in all), half from the envelope and half
+    up to 40 px off, with the degenerate sets in every batch."""
+    src = np.concatenate([
+        _quads(ORIENTATION_LANDSCAPE_RIGHT, 25, seed),
+        _quads(ORIENTATION_LANDSCAPE_RIGHT, 25, seed + 100, jitter=40.0),
+        _degenerate()])
+    got = _port_persp(src)
+    with np.errstate(invalid="ignore"):
+        want = np.stack([persp_host.persp_transform(s, CARD_DEST)
+                         for s in src])
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert np.isfinite(got[:50]).all()
+    assert not np.isfinite(got[50]).all()    # the all-zero set
+
+
+def test_persp_plain_matches_jax():
+    src = np.concatenate([_quads(ORIENTATION_PORTRAIT, 6, 7),
+                          _degenerate()[:1]])
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda s: jpersp.eigen_persp_transform(s, CARD_DEST)))(src))
+    np.testing.assert_array_equal(_bits(_port_persp(src)), _bits(want))
+
+
+def test_persp_wrapper_cpu_route_and_checks():
+    src = torch.from_numpy(_quads(ORIENTATION_LANDSCAPE_RIGHT, 2, 3))
+    dst = torch.from_numpy(CARD_DEST)
+    before = persp_qr.LAUNCHES
+    assert persp_qr.eigen_persp_transform_batched(src, dst).shape == (2, 3, 3)
+    assert persp_qr.LAUNCHES == before and not persp_qr.KERNEL.loaded
+    with pytest.raises(TypeError):
+        persp_qr.eigen_persp_transform_batched(src.double(), dst)
+    with pytest.raises(ValueError):
+        persp_qr.eigen_persp_transform_batched(src[:, :3], dst)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_maps():
+    return jax.jit(lambda m: jpersp.warp_coord_maps(m, OUT)[:2])
+
+
+@pytest.mark.parametrize("orientation", [ORIENTATION_LANDSCAPE_RIGHT,
+                                         ORIENTATION_PORTRAIT])
+def test_coord_maps_match_double_and_jax(orientation):
+    src = _quads(orientation, 3, orientation)
+    m = _port_persp(src)
+    x, y = ppersp.warp_coord_maps(torch.from_numpy(m), OUT)
+    for s in range(len(src)):
+        hx, hy = persp_host.warp_coord_maps(m[s], OUT)
+        np.testing.assert_array_equal(to_np(x[s]), hx)
+        np.testing.assert_array_equal(to_np(y[s]), hy)
+        jx, jy = _jax_maps()(m[s])
+        np.testing.assert_array_equal(to_np(x[s]), np.asarray(jx))
+        np.testing.assert_array_equal(to_np(y[s]), np.asarray(jy))
+
+
+def test_coord_maps_of_degenerate_homographies_stay_defined():
+    m = _port_persp(_degenerate())
+    x, y = ppersp.warp_coord_maps(torch.from_numpy(m), OUT)
+    assert x.dtype == torch.int32 and x.shape == (6,) + OUT
+    assert int(x[0].abs().max()) == 0     # a NaN map reads as 0
+
+
+@pytest.mark.parametrize("orientation", [ORIENTATION_LANDSCAPE_RIGHT,
+                                         ORIENTATION_PORTRAIT])
+def test_warp_plain_matches_jax_windowed(orientation):
+    """Uniform-noise frames, where every flipped tap would change the
+    output, warped through envelope quads. The JAX function runs op by
+    op: jitted on the CPU, XLA may fuse the multiplies and adds of its
+    double-float coordinate math into FMAs and move a quantized
+    coordinate across a rounding boundary (ROADMAP.md, queue 3), which
+    neither the TPU nor the real double chain does."""
+    rng = np.random.RandomState(11)
+    img = rng.randint(0, 256, (3, 480, 640)).astype(np.uint8)
+    m = _port_persp(_quads(orientation, 3, 20 + orientation))
+    transpose = papi._orientation_transposes(orientation)
+    got = to_np(pwarp.warp_perspective_exact(
+        torch.from_numpy(img), torch.from_numpy(m), OUT,
+        transpose=transpose))
+    bounds = japi.warp_src_bounds((480, 640), orientation)
+    with jax.disable_jit():
+        want = np.asarray(jax.vmap(lambda im, mm: jwarp.warp_perspective_exact(
+            im, mm, OUT, src_bounds=bounds, transpose=transpose))(img, m))
+    np.testing.assert_array_equal(got, want)
+    for s in range(3):
+        np.testing.assert_array_equal(got[s], persp_host.warp_exact(
+            img[s], m[s], OUT))
+
+
+def test_warp_gather_plain_reads_zero_outside():
+    img = torch.full((1, 4, 5), 200, dtype=torch.uint8)
+    # x0 = -1 (only the x0+1 tap inside), far out, and inside
+    xq = torch.tensor([[[-32 + 16, -10_000, 32 + 8]]], dtype=torch.int32)
+    yq = torch.tensor([[[32, 32, 32]]], dtype=torch.int32)
+    got = to_np(warp_gather.warp_gather_exact(img, xq, yq))[0, 0]
+    assert got.tolist() == [100, 0, 200]
+
+
+def test_warp_gather_wrapper_checks():
+    img = torch.zeros((2, 8, 8), dtype=torch.uint8)
+    q = torch.zeros((2, 3, 4), dtype=torch.int32)
+    before = warp_gather.LAUNCHES
+    assert warp_gather.warp_gather_exact(img, q, q).shape == (2, 3, 4)
+    assert warp_gather.LAUNCHES == before and not warp_gather.KERNEL.loaded
+    with pytest.raises(TypeError):
+        warp_gather.warp_gather_exact(img, q.long(), q)
+    with pytest.raises(ValueError):
+        warp_gather.warp_gather_exact(img[:1], q, q)
+    with pytest.raises(ValueError):
+        warp_gather.warp_gather_exact(img.transpose(1, 2), q, q)
+
+
+# --- the camera preprocessing in a portrait orientation --------------------
+
+def _portrait_frames():
+    """A card turned a quarter turn onto the portrait guide rect, and a
+    tilted one pasted with chroma, as (Y, Cb, Cr) stacks of 2."""
+    card = fx.synthetic.render_frame("4111111111111111", seed=3, noise=0,
+                                     y0=150, width=18.5, offset=30)
+    y = np.full((480, 640), 50, np.uint8)
+    y[26:26 + 428, 185:185 + 270] = np.rot90(card)
+    flat = np.full((240, 320), 128, np.uint8)
+    tilted = fx.camera_preview(card, ((188.0, 450.0), (183.0, 28.0),
+                                      (452.0, 455.0), (457.0, 24.0)))
+    return tuple(np.stack(p) for p in zip((y, flat, flat), tilted))
+
+
+def test_preprocess_frame_portrait_matches_jax():
+    """Corners against the JAX package's detect_edges run op by op, and
+    the card against its real-double warp chain (persp_host) from them."""
+    y, cb, cr = _portrait_frames()
+    t = [torch.from_numpy(a) for a in (y, cb, cr)]
+    _, corners = papi.detect_edges(*t, orientation=ORIENTATION_PORTRAIT)
+    want = fx.op_by_op_corners(y, cb, cr, ORIENTATION_PORTRAIT)
+    np.testing.assert_array_equal(_bits(fx.corner_array(corners)),
+                                  _bits(want))
+    found, card = papi.preprocess_frame(*t, orientation=ORIENTATION_PORTRAIT)
+    assert to_np(found).all()
+    order = [("tl", "tr", "bl", "br").index(k)
+             for k in papi._CORNER_ORDER[ORIENTATION_PORTRAIT]]
+    for s in range(2):
+        np.testing.assert_array_equal(to_np(card[s]),
+                                      persp_host.unwarp_card_exact(
+                                          y[s], want[s][order], OUT))

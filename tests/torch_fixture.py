@@ -1,14 +1,24 @@
-"""The session fixture shared by the PyTorch port's tests and chip_smoke.py.
+"""The session fixtures shared by the PyTorch port's tests and chip_smoke.py.
 
-Four streams of six rendered 270x428 card frames go through the JAX
-package's scanner_step, vmapped over streams. Streams 0 and 1 (two
-readable PANs) become cardio_dmz_tpu_torch/data/smoke_session.npz: their
-frames, the date the sessions start from, the JAX package's per-frame
-vseg/hseg/scores/usable and the final completed digits. chip_smoke.py
-replays those frames through the port on the card, where neither JAX nor
-the renderer is installed.
+smoke_session.npz, the PAN-only path: four streams of six rendered
+270x428 card frames go through the JAX package's scanner_step, vmapped
+over streams. Streams 0 and 1 (two readable PANs) are kept: their frames,
+the date the sessions start from, the JAX package's per-frame
+vseg/hseg/scores/usable and the final completed digits.
 
-Write the file anew with:  python tests/torch_fixture.py
+camera_session.npz, the camera path: two streams of 480x640 Y + 240x320
+Cb/Cr preview frames go through the JAX package's camera_scanner_step,
+vmapped over streams. Stream 0 is a card on the landscape guide rect (the
+geometry of tests/test_camera.py); stream 1 a perspective-tilted card,
+pasted into the preview with persp_host.warp_exact, so that the warp
+really interpolates. Kept: the frames, and per frame the JAX package's
+found flag, corners, homography, rectified card and frame fields, and the
+final completed digits.
+
+chip_smoke.py replays both through the port on the card, where neither
+JAX nor the renderer is installed. Write the files anew with:
+
+    python tests/torch_fixture.py
 """
 
 import functools
@@ -24,11 +34,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import synthetic  # noqa: E402
+from cardio_dmz_tpu import api  # noqa: E402
+from cardio_dmz_tpu.constants import (  # noqa: E402
+    LANDSCAPE_HORIZONTAL_INSET, LANDSCAPE_VERTICAL_INSET,
+    ORIENTATION_LANDSCAPE_RIGHT)
 from cardio_dmz_tpu.models.weights import load_all_params  # noqa: E402
+from cardio_dmz_tpu.ops import persp_host  # noqa: E402
 from cardio_dmz_tpu.session import scanner_reset, scanner_step  # noqa: E402
+from cardio_dmz_tpu.session.state import camera_scanner_step  # noqa: E402
 
-FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "cardio_dmz_tpu_torch", "data", "smoke_session.npz")
+_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "cardio_dmz_tpu_torch", "data")
+FIXTURE = os.path.join(_DATA, "smoke_session.npz")
+CAMERA_FIXTURE = os.path.join(_DATA, "camera_session.npz")
 NOW = (2026, 1)
 N_FRAMES = 6
 # (pan, y0, noise): two readable PANs, a wrong-Luhn PAN and an upside-down
@@ -98,7 +116,159 @@ def fixture_arrays():
     }
 
 
+# --- the camera path -------------------------------------------------------
+
+CAMERA_FRAMES = 20
+CARD_DEST = np.float32([[0, 0], [427, 0], [0, 269], [427, 269]])
+# (pan, quad of the card in the preview as tl, tr, bl, br; None = the
+# guide rect, pasted without resampling)
+CAMERA_STREAMS = (
+    ("4111111111111111", None),
+    ("4530504390541813", ((103.0, 108.0), (529.0, 101.0), (108.0, 370.0),
+                          (536.0, 376.0))),
+)
+
+
+def camera_preview(card, quad=None, bg=50):
+    """A 270x428 card placed in a 480x640 Y + 240x320 Cb/Cr preview.
+    quad=None puts it on the landscape guide rect with flat 128 chroma
+    (tests/test_camera.py); otherwise it is warped onto `quad` with
+    cvWarpPerspective's exact bilinear and blended into the background by
+    its coverage, and a flat-tinted card goes onto the chroma planes."""
+    if quad is None:
+        y = np.full((480, 640), bg, np.uint8)
+        x0, y0 = LANDSCAPE_HORIZONTAL_INSET, LANDSCAPE_VERTICAL_INSET
+        y[y0:y0 + 270, x0:x0 + 428] = card
+        cbcr = np.full((240, 320), 128, np.uint8)
+        return y, cbcr, cbcr.copy()
+
+    def paste(image, value, scale, shape):
+        m = persp_host.persp_transform(CARD_DEST, np.float32(quad) * scale)
+        warped = persp_host.warp_exact(image, m, shape).astype(np.int32)
+        cover = persp_host.warp_exact(np.full_like(image, 255), m,
+                                      shape).astype(np.int32)
+        out = warped + (value * (255 - cover) + 127) // 255
+        return np.clip(out, 0, 255).astype(np.uint8)
+
+    # the chroma planes carry the card too, at half size
+    tint = np.full_like(card, 100)
+    return (paste(card, bg, 1.0, (480, 640)),
+            paste(tint, 128, 0.5, (240, 320)),
+            paste(tint + 60, 128, 0.5, (240, 320)))
+
+
+@functools.lru_cache(maxsize=None)
+def camera_frames():
+    """Y (2, T, 480, 640), Cb and Cr (2, T, 240, 320), all uint8."""
+    planes = [[camera_preview(synthetic.render_frame(
+        pan, seed=i, noise=0, y0=150, width=18.5, offset=30), quad)
+        for i in range(CAMERA_FRAMES)] for pan, quad in CAMERA_STREAMS]
+    return tuple(np.stack([np.stack([f[k] for f in stream])
+                           for stream in planes]) for k in range(3))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_camera_step():
+    """The JAX package's camera step, vmapped over streams and jitted, with
+    the corners and the rectified card it computes on the way:
+    (state, y, cb, cr) -> (state, found, frame, result, corners, card)."""
+    params = load_all_params()
+
+    def step(state, y, cb, cr):
+        _, corners = api.detect_edges(y, cb, cr)
+        _, card = api.preprocess_frame(y, cb, cr)
+        state, (found, frame, result) = camera_scanner_step(
+            params, state, y, cb, cr)
+        return state, found, frame, result, corners, card
+    return jax.jit(jax.vmap(step))
+
+
+def corner_array(corners):
+    """CornerPoints -> (..., 4, 2) in tl, tr, bl, br order."""
+    return np.stack([np.asarray(c) for c in (
+        corners.top_left, corners.top_right, corners.bottom_left,
+        corners.bottom_right)], axis=-2)
+
+
+def op_by_op_corners(y, cb, cr, orientation=ORIENTATION_LANDSCAPE_RIGHT):
+    """detect_edges' corners for (N, ...) frames with every JAX op run on
+    its own: no f32 multiply fused into an add, as on the TPU and in the
+    reference's compiled C++ (the jitted XLA:CPU graph may fuse them)."""
+    with jax.disable_jit():
+        _, corners = jax.vmap(lambda a, b, c: api.detect_edges(
+            a, b, c, orientation))(
+            jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr))
+    return corner_array(corners)
+
+
+def assert_corners_uncontracted(corners, y, cb, cr,
+                                orientation=ORIENTATION_LANDSCAPE_RIGHT):
+    """The jitted JAX corners (N, 4, 2) equal the op-by-op ones, bit for
+    bit: the port computes the latter, so only such inputs compare."""
+    want = op_by_op_corners(y, cb, cr, orientation)
+    np.testing.assert_array_equal(np.asarray(corners).view(np.int32),
+                                  want.view(np.int32))
+
+
+def homographies(corners):
+    """The JAX package's homography for (..., 4, 2) landscape corners, as
+    it computes it off the TPU (persp_host, through a callback)."""
+    flat = corners.reshape(-1, 4, 2)
+    return np.stack([persp_host.persp_transform(c, CARD_DEST)
+                     for c in flat]).reshape(corners.shape[:-2] + (3, 3))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_camera_session():
+    """The JAX camera step over camera_frames(): one (state, found, frame,
+    result, corners, card) per step, as numpy, stream-major."""
+    y, cb, cr = camera_frames()
+    step = jax_camera_step()
+    state = jax.vmap(lambda _: scanner_reset(now=NOW))(jnp.arange(len(y)))
+    out = []
+    for t in range(CAMERA_FRAMES):
+        state, *rest = step(state, y[:, t], cb[:, t], cr[:, t])
+        out.append(_np((state, *rest)))
+    return out
+
+
+def camera_fixture_arrays():
+    """What camera_session.npz holds, computed now from the JAX package."""
+    run = jax_camera_session()
+    y, cb, cr = camera_frames()
+
+    def per_frame(get):
+        return np.stack([np.asarray(get(r)) for r in run], axis=1)
+
+    corners = per_frame(lambda r: corner_array(r[4]))        # (2, T, 4, 2)
+    assert_corners_uncontracted(
+        corners.reshape(-1, 4, 2), y.reshape(-1, 480, 640),
+        cb.reshape(-1, 240, 320), cr.reshape(-1, 240, 320))
+    final = run[-1][0]
+    return {
+        "y": y, "cb": cb, "cr": cr,
+        "now": np.asarray(NOW, np.int32),
+        "found": per_frame(lambda r: r[1]),
+        "corners": corners,
+        "homography": homographies(corners),
+        "card": per_frame(lambda r: r[5]),
+        "vseg_y_offset": per_frame(lambda r: r[2].vseg.y_offset),
+        "vseg_pattern_type": per_frame(lambda r: r[2].vseg.pattern_type),
+        "hseg_n_offsets": per_frame(lambda r: r[2].hseg.n_offsets),
+        "hseg_offsets": per_frame(lambda r: r[2].hseg.offsets),
+        "scores": per_frame(lambda r: r[2].scores),
+        "usable": per_frame(lambda r: r[2].usable),
+        "focus_score": per_frame(lambda r: r[2].focus_score),
+        "brightness_score": per_frame(lambda r: r[2].brightness_score),
+        "number_complete": final.number_complete,
+        "completed_digits": final.completed_digits,
+        "completed_n": final.completed_n,
+    }
+
+
 if __name__ == "__main__":
-    os.makedirs(os.path.dirname(FIXTURE), exist_ok=True)
-    np.savez_compressed(FIXTURE, **fixture_arrays())
-    print(f"wrote {FIXTURE} ({os.path.getsize(FIXTURE)} bytes)")
+    os.makedirs(_DATA, exist_ok=True)
+    for path, arrays in ((FIXTURE, fixture_arrays),
+                         (CAMERA_FIXTURE, camera_fixture_arrays)):
+        np.savez_compressed(path, **arrays())
+        print(f"wrote {path} ({os.path.getsize(path)} bytes)")
