@@ -5,15 +5,13 @@ cardio_dmz_tpu/ops/pallas/digit_prep.py (prepare_digit_cells_pallas /
 _digit_prep_kernel): for every stream and each of its 16 hseg offsets it
 crops a 27x19 cell from the 27x428 PAN strip, takes the cross morph
 gradient clamped at the cell border, histogram-equalizes it and divides by
-255. One thread block per (cell, stream), with the cell, the histogram and
-its prefix sum in shared memory.
+255. One thread block per stream, with the strip in shared memory, and one
+warp per cell, with its own histogram and an in-warp prefix sum.
 
-What bounds it on an H100: bytes and launch latency, not arithmetic. Per
-stream it reads about 12 KB of strip (27x428 u8) and writes 33 KB
-(16x27x19 f32); at 256 streams that is ~11 MB, a few microseconds of HBM
-time, so at the serving sizes the launch and each block's serial
-histogram/scan latency dominate. Packing several cells per block and
-fusing the output into the first conv GEMM are later work.
+What bounds it on an H100: bytes. At 256 streams it reads ~2.1 MB of the
+strips (the columns its cells cover) and writes 8.4 MB of f32 cells,
+~3.1 us at 3.35 TB/s. Fusing the output into the first conv GEMM is later
+work.
 
 On the serving path on a GPU this kernel is the route for CUDA tensors.
 (On the TPU the JAX package keeps its kernel off for serving, because its
@@ -65,8 +63,10 @@ def prepare_cells(cells):
     eq = equalize_hist(morph_grad3_2d_cross_u8(cells)).to(torch.float32)
     # A true division, as the kernel and the JAX package divide: torch
     # multiplies by the reciprocal when the divisor is a Python number on a
-    # CUDA tensor, which can differ in the last bit.
-    return eq / torch.tensor(255.0, device=eq.device)
+    # CUDA tensor, which can differ in the last bit. torch.full fills the
+    # divisor on the device (no copy from the host), so a CUDA graph can
+    # capture this version.
+    return eq / torch.full((), 255.0, device=eq.device)
 
 
 def prepare_digit_cells_reference(strip, offsets):

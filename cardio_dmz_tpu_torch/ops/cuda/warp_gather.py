@@ -1,66 +1,76 @@
-"""The exact card warp's gather: the CUDA kernel and its plain version.
+"""The exact card warp: the CUDA kernel and its plain route.
 
 The kernel, csrc/warp_gather.cu, replaces the Pallas TPU kernel
 cardio_dmz_tpu/ops/pallas/warp_gather.py (warp_gather_exact /
-_warp_gather_kernel with _chunk_qsets): cvWarpPerspective INTER_LINEAR +
-FILL_OUTLIERS from quantized 1/32-px source maps X, Y (ops/persp.py
-warp_coord_maps). Taps (x0, y0) .. (x0+1, y0+1) with x0 = X >> 5,
-ax = X & 31 (likewise y) weigh (32-ax)(32-ay)*32 and so on, the sum is
-(acc + 2^14) >> 15 saturated to u8, and a tap outside the image reads 0.
+_warp_gather_kernel with _chunk_qsets) and the coordinate maps that feed
+it: cvWarpPerspective INTER_LINEAR + FILL_OUTLIERS from the frame and the
+f32 homography. For each stream it inverts double(m) by cofactors, computes
+each output pixel's quantized 1/32-px source position (X, Y) in float64 as
+ops/persp.py warp_coord_maps does, and takes the four 5-bit-weighted taps:
+(x0, y0) .. (x0+1, y0+1) with x0 = X >> 5, ax = X & 31 (likewise y) weigh
+(32-ax)(32-ay)*32 and so on, the sum is (acc + 2^14) >> 15 saturated to u8,
+and a tap outside the frame reads 0. No map goes through device memory.
 
-One thread per output pixel, each gathering its four taps straight from
-its stream's frame. The TPU kernel's source windows, band bases and lane
-slices work around Mosaic's gather limits and are not carried over. For
-every quad the detector can reach the JAX package's windows cover every
-tap (tests/test_warp_envelope.py), so the direct gather equals its
-windowed forms there; the tests draw their quads from that envelope.
+The TPU kernel's source windows, band bases and lane slices work around
+Mosaic's gather limits and are not carried over: one block per stream
+walks its card 4 pixels a thread, reading the taps straight from the
+frame. For every quad the detector can reach the JAX package's windows
+cover every tap (tests/test_warp_envelope.py), so the direct gather equals
+its windowed forms there; the tests draw their quads from that envelope.
 
-What bounds it on an H100: bytes and launch. Per stream it reads ~4 taps
-per output pixel from a 307 KB frame that sits in L2 and the two int32
-maps (924 KB), and writes 115 KB.
+What bounds it on an H100: instruction issue, mostly the integer work of
+the quantization and the taps beside ~25 float64 operations a pixel (the
+correctly rounded division 32 / den about 10); the bytes (the tapped frame
+region and the card) would take a seventh of its time. A portrait card's
+rows run down the frame, so that warp walks the card column by column.
 
-The plain version is persp_host.warp_exact's per-pixel gather, batched
-over streams. A CPU tensor takes it; a CUDA tensor takes the kernel.
+The plain route is warp_coord_maps, then persp_host.warp_exact's per-pixel
+gather batched over streams (warp_gather_reference); the kernel equals it
+bit for bit, NaN homographies included. A CPU tensor takes it; a CUDA
+tensor takes the kernel.
 """
 
 import ctypes
 
 import torch
 
+from ..persp import warp_coord_maps
 from ._build import CudaKernel
 
-KERNEL = CudaKernel("warp_gather", "warp_gather_launch",
-                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                    + [ctypes.c_void_p])
+KERNEL = CudaKernel("warp_gather", "warp_exact_launch",
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                    + [ctypes.c_void_p], flags=("--fmad=false",))
 
-# Launches of the CUDA kernel since the last reset; the plain version does
-# not count.
+# Launches of the CUDA kernel since the last reset; the plain route does not
+# count.
 LAUNCHES = 0
 
 _MAX_STREAMS = 65535   # the launch grid's y dimension
 
 
-def _check(image, xq, yq):
-    if image.dtype != torch.uint8 or xq.dtype != torch.int32 \
-            or yq.dtype != torch.int32:
-        raise TypeError(f"image must be uint8 and maps int32; got "
-                        f"{image.dtype}, {xq.dtype}, {yq.dtype}")
-    if image.dim() != 3 or xq.dim() != 3 or xq.shape != yq.shape \
-            or xq.shape[0] != image.shape[0]:
-        raise ValueError(f"want image (S, H, W) and maps (S, h, w); got "
-                         f"{tuple(image.shape)}, {tuple(xq.shape)}, "
-                         f"{tuple(yq.shape)}")
-    if not (image.device == xq.device == yq.device):
-        raise ValueError(f"image on {image.device}, maps on {xq.device} and "
-                         f"{yq.device}")
-    if not (image.is_contiguous() and xq.is_contiguous()
-            and yq.is_contiguous()):
-        raise ValueError("image and maps must be contiguous")
+def _check(image, m, out_shape, transpose):
+    if image.dtype != torch.uint8 or m.dtype != torch.float32:
+        raise TypeError(f"image must be uint8 and homographies float32; got "
+                        f"{image.dtype} and {m.dtype}")
+    if not isinstance(transpose, bool):
+        raise TypeError(f"transpose must be a bool; got {transpose!r}")
+    if image.dim() != 3 or m.shape != (image.shape[0], 3, 3):
+        raise ValueError(f"want image (S, H, W) and homographies (S, 3, 3); "
+                         f"got {tuple(image.shape)} and {tuple(m.shape)}")
+    if (len(out_shape) != 2
+            or not all(isinstance(n, int) and n > 0 for n in out_shape)):
+        raise ValueError(f"want out_shape (h, w) of positive ints; got "
+                         f"{out_shape!r}")
+    if image.device != m.device:
+        raise ValueError(f"image on {image.device}, homographies on "
+                         f"{m.device}")
+    if not (image.is_contiguous() and m.is_contiguous()):
+        raise ValueError("image and homographies must be contiguous")
 
 
 def warp_gather_reference(image, xq, yq):
-    """The plain PyTorch version. image (S, H, W) u8, xq/yq (S, h, w)
-    int32 -> (S, h, w) u8."""
+    """The plain gather: image (S, H, W) u8 resampled at quantized maps
+    xq/yq (S, h, w) int32 -> (S, h, w) u8."""
     s, in_h, in_w = image.shape
     flat = image.reshape(s, -1)
     x0, ax = xq >> 5, xq & 31
@@ -80,28 +90,48 @@ def warp_gather_reference(image, xq, yq):
     return ((acc + (1 << 14)) >> 15).clamp(0, 255).to(torch.uint8)
 
 
-def warp_gather_exact(image, xq, yq):
-    """Every stream's frame resampled at its quantized maps.
+def warp_perspective_reference(image, m_src_to_dst, out_shape,
+                               transpose=False):
+    """The plain route: the float64 maps, then the gather; transpose=True
+    resamples the transposed frame with the maps swapped, as the JAX
+    package does."""
+    xq, yq = warp_coord_maps(m_src_to_dst, out_shape)
+    if transpose:
+        image, xq, yq = image.transpose(-1, -2), yq, xq
+    return warp_gather_reference(image, xq, yq)
 
-    image: (S, H, W) uint8; xq, yq: (S, h, w) int32 source positions in
-    1/32 px. Returns (S, h, w) uint8. A CUDA tensor goes through the CUDA
-    kernel; a CPU tensor through the plain version."""
+
+def warp_perspective_exact(image, m_src_to_dst, out_shape, transpose=False):
+    """cvWarpPerspective INTER_LINEAR + FILL_OUTLIERS, exactly.
+
+    image: (S, H, W) uint8 frames; m_src_to_dst: (S, 3, 3) float32 forward
+    homographies; out_shape: (h, w). transpose=True (portrait orientations)
+    resamples the transposed frame with X and Y swapped, as the JAX package
+    does; img.T(X, Y) == img(Y, X), so the card is the same. Returns (S, h,
+    w) uint8. A CUDA tensor goes through the CUDA kernel, which computes
+    the maps itself and reads the untransposed frame; a CPU tensor through
+    the plain route."""
     global LAUNCHES
-    _check(image, xq, yq)
+    _check(image, m_src_to_dst, out_shape, transpose)
     if image.device.type == "cpu":
-        return warp_gather_reference(image, xq, yq)
+        return warp_perspective_reference(image, m_src_to_dst, out_shape,
+                                          transpose)
     if image.device.type != "cuda":
-        raise ValueError(f"no warp-gather route for {image.device}")
+        raise ValueError(f"no warp route for {image.device}")
     s, in_h, in_w = image.shape
-    out = torch.empty(xq.shape, dtype=torch.uint8, device=image.device)
-    n_pixels = xq.shape[1] * xq.shape[2]
-    if s == 0 or n_pixels == 0:
+    out_h, out_w = out_shape
+    out = torch.empty((s, out_h, out_w), dtype=torch.uint8,
+                      device=image.device)
+    if s == 0:
         return out
     if s > _MAX_STREAMS:
         raise ValueError(f"at most {_MAX_STREAMS} streams a launch; got {s}")
+    if in_h * in_w >= 2**31:
+        raise ValueError(f"a frame must hold fewer than 2^31 pixels; got "
+                         f"{in_h}x{in_w}")
     with torch.cuda.device(image.device):
-        KERNEL.launch(image.data_ptr(), xq.data_ptr(), yq.data_ptr(),
-                      out.data_ptr(), s, in_h, in_w, n_pixels,
-                      torch.cuda.current_stream().cuda_stream)
+        KERNEL.launch(image.data_ptr(), m_src_to_dst.data_ptr(),
+                      out.data_ptr(), s, in_h, in_w, out_h, out_w,
+                      int(transpose), torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     return out

@@ -7,7 +7,9 @@ Counterpart of the JAX package's ops/persp.py. The homography is Eigen
 for CPU tensors). The maps are computed in native float64, as
 cvWarpPerspective computes them; the JAX package emulates that double
 math in double-float arithmetic for the TPU, which the port does not
-need.
+need. On the card the warp kernel computes the maps itself
+(ops/cuda/warp_gather.py); warp_coord_maps is its plain route's first half
+and the CPU route.
 """
 
 import torch
@@ -15,6 +17,7 @@ import torch
 from .cuda.persp_qr import eigen_persp_transform_batched
 
 _MAP_LIMIT = 2.0**31 - 256
+_NAN_MAP = -2**31   # cvRound(NaN) on x86
 
 
 def eigen_persp_transform(source_points, dest_points):
@@ -49,7 +52,9 @@ def warp_coord_maps(m, out_shape):
     inv(double(m)); den = M20 x + M21 y + M22; W = 32/den, or 0 where
     den == 0; X = round(num_x * W) after a clip to +-(2^31 - 256), half to
     even as cvRound. A NaN coordinate (from a NaN homography, where no
-    card was found) becomes 0.
+    card was found) becomes INT32_MIN, as cvRound gives it on x86 and
+    persp_host does: every tap then lies outside the frame and the card is
+    0, as the reference's and the JAX package's are.
 
     m: (S, 3, 3) f32 src -> dst homographies. Returns X, Y: (S, out_h,
     out_w) int32 source positions in 1/32 px."""
@@ -68,7 +73,9 @@ def warp_coord_maps(m, out_shape):
 
     def quantize(num):
         f = num * w
-        f = torch.where(torch.isnan(f), 0.0, f)
-        return torch.round(f.clamp(-_MAP_LIMIT, _MAP_LIMIT)).to(torch.int32)
+        nan = torch.isnan(f)
+        q = torch.round(torch.where(nan, 0.0, f).clamp(-_MAP_LIMIT,
+                                                       _MAP_LIMIT))
+        return torch.where(nan, _NAN_MAP, q.to(torch.int32))
 
     return quantize(linform(0)), quantize(linform(1))

@@ -1,12 +1,13 @@
 """Perspective rectification, the exact form (cv/warp.cpp equivalents).
 
 Counterpart of the JAX package's ops/warp.py for method="exact", the
-camera serving default: the Eigen-f32-QR homography (ops/persp.py), the
-quantized float64 coordinate maps of cvWarpPerspective, and its 5-bit
-fixed-point bilinear gather (ops/cuda/warp_gather.py: the CUDA kernel for
-CUDA tensors, its plain version for CPU tensors). Bit for bit the
-reference chain. The JAX package's "dense" and "gather" methods and its
-bf16 warp are not ported.
+camera serving default: the Eigen-f32-QR homography (ops/persp.py) and
+cvWarpPerspective's quantized float64 coordinate maps with its 5-bit
+fixed-point bilinear gather, in one step (ops/cuda/warp_gather.py: the
+CUDA kernel, which computes the maps itself, for CUDA tensors; the plain
+route, ops/persp.py warp_coord_maps and then the gather, for CPU
+tensors). Bit for bit the reference chain. The JAX package's "dense" and
+"gather" methods and its bf16 warp are not ported.
 """
 
 import functools
@@ -14,8 +15,8 @@ import functools
 import torch
 
 from ..constants import CARD_HEIGHT, CARD_WIDTH
-from .cuda.warp_gather import warp_gather_exact
-from .persp import eigen_persp_transform, warp_coord_maps
+from .cuda.warp_gather import warp_perspective_exact
+from .persp import eigen_persp_transform
 
 
 @functools.lru_cache(maxsize=None)
@@ -28,20 +29,6 @@ def _dest_points(out_shape, device):
                         dtype=torch.float32, device=device)
 
 
-def warp_perspective_exact(image, m_src_to_dst, out_shape, transpose=False):
-    """cvWarpPerspective INTER_LINEAR + FILL_OUTLIERS, exactly.
-
-    image: (S, H, W) u8; m_src_to_dst: (S, 3, 3) f32 forward homographies.
-    transpose=True (portrait orientations) resamples the transposed frame
-    with the maps swapped, as the JAX package does; img.T(X, Y) ==
-    img(Y, X), so the result is the same. Returns (S, out_h, out_w) u8."""
-    xq, yq = warp_coord_maps(m_src_to_dst, out_shape)
-    if transpose:
-        image = image.transpose(-1, -2)
-        xq, yq = yq, xq
-    return warp_gather_exact(image.contiguous(), xq, yq)
-
-
 def unwarp_card(image, source_points, out_shape=(CARD_HEIGHT, CARD_WIDTH),
                 transpose=False):
     """llcv_unwarp (cv/warp.cpp:130-169), the exact method: rectify each
@@ -49,4 +36,5 @@ def unwarp_card(image, source_points, out_shape=(CARD_HEIGHT, CARD_WIDTH),
     source_points: (S, 4, 2) f32."""
     dest = _dest_points(tuple(out_shape), image.device)
     m = eigen_persp_transform(source_points, dest)
-    return warp_perspective_exact(image, m, out_shape, transpose=transpose)
+    return warp_perspective_exact(image.contiguous(), m, tuple(out_shape),
+                                  transpose=transpose)

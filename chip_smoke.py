@@ -10,7 +10,10 @@ without printing its last line:
 2. build    nvcc builds the three kernels from csrc/, one process each, all
             started together (-Xptxas -v shown)
 3. kernel   digit-prep kernel == its plain PyTorch version, bit for bit, at
-            256 streams x 16 cells; median of 50 CUDA-event-timed calls each
+            256 streams x 16 cells on uniform-noise strips, on the PAN
+            strips of the recorded fixture frames (through vseg and hseg)
+            and on an all-equal strip (every gradient 0); kernel times on
+            each, the plain version's on the real strips
 4. models   the reference's golden vectors on the card, at 1e-5
 5. session  the recorded fixture sessions (cardio_dmz_tpu_torch/data/
             smoke_session.npz, written from the JAX package by
@@ -19,31 +22,41 @@ without printing its last line:
             PANs read, and the path went through the kernel
 6. serving  batched_scanner_step at 256 streams (the fixture frames tiled):
             3 warm-up and 20 timed steps, every stream completes; frames/s,
-            step ms and a per-stage split
+            step ms, peak memory and a per-stage split
 7. persp    persp-QR kernel == its plain version, bit for bit and NaN
             included, on 256 detector-realistic corner sets and an all-zero
-            one; both times
-8. warp     warp-gather kernel == its plain version, u8 for u8, at 256
-            uniform-noise frames through envelope quads, landscape and
-            portrait (transposed); both times
+            one; kernel, plain and torch.linalg.solve_ex times
+8. warp     the exact-warp kernel (coordinate maps computed in the kernel)
+            == its plain route (float64 maps, then the gather), u8 for u8,
+            on 256 uniform-noise frames through envelope quads, landscape
+            and portrait, and on a NaN homography (all-zero corners)
 9. camera   the recorded camera sessions (data/camera_session.npz, written
             from the JAX package by tests/torch_fixture.py) through
             batched_camera_step frame by frame: found flags, corners and
             homographies (f32 bits), cards (u8) and every discrete scan
             output equal the JAX package's, digit scores within 1e-5, both
-            PANs read, both new kernels launched
+            PANs read, both camera kernels launched
 10. camera serving
             batched_camera_step at 256 streams (the camera fixture tiled):
             3 warm-up and 20 timed steps, every stream completes; frames/s,
-            step ms and a per-stage split (detect / homography and maps /
-            warp / scan)
+            step ms, peak memory, a per-stage split (detect / homography /
+            warp / scan), a check that no card-shaped float64 or int32
+            tensor is made, and a profile of one step
+
+Kernel times (`ms`, `plain_ms`, `library_ms`) are device times from
+kernel_ms: many calls captured in one CUDA graph and replayed, so the
+wrappers' Python is not inside them. Stage splits and step times do include
+the host's launches (event_ms, host clock).
 
 Each serving phase sets every kernel's launch count to 0 just before its
 run and reads them just after. The line before the last is a JSON object
-with each kernel's launches on the camera serving path (and on the
-PAN-only one), its largest difference from the plain version and both
-times. The last line is {"ok": true, "device": {...}}. Needs no network
-and no JAX; builds into cardio_dmz_tpu_torch/_build/.
+with, for each kernel, its launches on the camera serving path (and on the
+PAN-only one), its largest difference from the plain version, its time,
+the plain version's and one PyTorch call's where one computes the same
+function, and its bound: the larger of the bytes it must move over the
+card's memory rate and its operations over the card's peak rate. The last
+line is {"ok": true, "device": {...}}. Needs no network and no JAX; builds
+into cardio_dmz_tpu_torch/_build/.
 """
 
 import json
@@ -63,6 +76,7 @@ KERNEL_REPS = 50
 SCORE_ATOL = 1e-5        # the reference's golden tolerance
 TELEMETRY_RTOL = 1e-5    # focus/brightness: sums in another order
 CARD_SHAPE = (270, 428)
+FRAME_SHAPE = (480, 640)
 CARD_DEST = [[0.0, 0.0], [427.0, 0.0], [0.0, 269.0], [427.0, 269.0]]
 # the guide rect's corners in the warp's corner order (tl, tr, bl, br for
 # landscape; bl, tl, br, tr for portrait); detector-realistic quads lie
@@ -77,6 +91,17 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "persp_qr": ("cardio_dmz_tpu_torch/csrc/persp_qr.cu",
                  "cardio_dmz_tpu/ops/pallas/persp_qr.py:168"),
 }
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s; float32 and float64
+# outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+# float64 operations of the warp per output pixel: three linear forms
+# (a x + b y) + c at 2 multiplies and 2 adds each, 32 / den, and the two
+# products num * W
+WARP_F64_PER_PIXEL = 15
+# per stream: 18 multiplies and 9 subtractions of the cofactors, 3 + 2 of
+# the determinant, 1 / det, 9 products
+WARP_F64_PER_STREAM = 42
 
 
 def phase(name):
@@ -84,8 +109,10 @@ def phase(name):
 
 
 def event_ms(fn, reps):
-    """Median device time of `reps` calls of fn, each between two CUDA
-    events, after 3 warm-up calls."""
+    """Median time of `reps` calls of fn, each between two CUDA events,
+    after 3 warm-up calls. The span includes the host's launches, which
+    is what a stage split of a launch-bound step wants; kernel times come
+    from kernel_ms."""
     for _ in range(3):
         fn()
     times = []
@@ -98,6 +125,64 @@ def event_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def profiler_ms(fn, reps):
+    """Device ms of one call of fn: the device time of every kernel and
+    copy of `reps` calls under torch.profiler, over reps."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages())
+    if us <= 0:
+        raise RuntimeError("torch.profiler saw no device time")
+    return us / 1000.0 / reps
+
+
+def kernel_ms(fn, reps=KERNEL_REPS):
+    """Device ms of one call of fn. `reps` calls are captured back to back
+    in one CUDA graph, which is replayed between two events (median of 5
+    replays); the graph holds only device work, so the Python of a wrapper
+    (checks, torch.empty, the ctypes call) is not timed. Where fn cannot be
+    captured, the device time of its kernels under torch.profiler.
+    Returns (ms, method)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print(f"graph capture failed ({str(e).splitlines()[0]}); timing with "
+              f"torch.profiler")
+        return profiler_ms(fn, reps), "profiler"
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times), "graph"
+
+
+def bound(n_bytes, flops=0.0, kind="f32"):
+    """(bound_ms, bound_by): the larger of n_bytes over the memory rate and
+    flops over the peak rate of their type."""
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * flops / PEAK_FLOPS[kind]
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
 
 
 def device_phase():
@@ -151,31 +236,79 @@ def build_phase(modules):
                 print(line)
 
 
-def kernel_phase(digit_prep, dev):
-    phase("3 kernel")
+def load_npz(path):
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def fixture_path(port, name):
+    return os.path.join(os.path.dirname(port.__file__), "data", name)
+
+
+def digit_strips(port, fixture, dev):
+    """Three (strips, offsets) sets at N_STREAMS: uniform noise with sorted
+    random offsets; the PAN strips of the recorded fixture frames (all 12
+    frames tiled) with their vseg row and hseg offsets, as the serving path
+    hands them to the kernel; and an all-equal strip, whose gradients are
+    all 0 (every histogram increment on one bin)."""
     rng = np.random.RandomState(0)
-    strips = torch.from_numpy(rng.randint(
+    noise = torch.from_numpy(rng.randint(
         0, 256, (N_STREAMS, 27, 428)).astype(np.uint8)).to(dev)
     offsets = np.sort(rng.randint(0, 410, (N_STREAMS, 16)), axis=1)
     offsets[:, 0], offsets[:, -1] = 0, 409
     offsets = torch.from_numpy(offsets.astype(np.int32)).to(dev)
 
-    got = digit_prep.prepare_digit_cells(strips, offsets)
-    want = digit_prep.prepare_digit_cells_reference(strips, offsets)
-    torch.cuda.synchronize()
-    max_err = (got - want).abs().max().item()
-    if not torch.equal(got, want):
-        raise AssertionError(f"digit-prep kernel != plain version, max abs "
-                             f"difference {max_err}")
-    ms = event_ms(lambda: digit_prep.prepare_digit_cells(strips, offsets),
-                  KERNEL_REPS)
-    plain_ms = event_ms(
-        lambda: digit_prep.prepare_digit_cells_reference(strips, offsets),
-        KERNEL_REPS)
-    print(f"digit_prep at {N_STREAMS}x16 cells: equal bit for bit; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(median of {KERNEL_REPS})")
-    return max_err, ms, plain_ms
+    frames = fixture["frames"].reshape((-1,) + CARD_SHAPE)
+    frames = np.tile(frames, (-(-N_STREAMS // len(frames)), 1, 1))
+    frames = torch.from_numpy(frames[:N_STREAMS]).to(dev)
+    params = port.load_all_params(dev)
+    vseg = port.scan.best_n_vseg(params["vseg_mlp"], frames)
+    strip = port.scan.frame.pan_strip(frames, vseg.y_offset).contiguous()
+    hseg = port.scan.best_n_hseg(strip, vseg.pattern_type,
+                                 vseg.number_length)
+    return {"noise": (noise, offsets),
+            "real": (strip, hseg.offsets.to(torch.int32).contiguous()),
+            "equal": (torch.full_like(noise, 77), offsets)}
+
+
+def digit_prep_bytes(offsets):
+    """Bytes the digit prep must move for these offsets: the strip columns
+    that some cell covers (27 rows each), the offsets, the f32 cells."""
+    s = offsets.shape[0]
+    cols = (offsets.to(torch.int64).clamp(0, 409)[:, :, None]
+            + torch.arange(19, device=offsets.device)).reshape(s, -1)
+    covered = torch.zeros((s, 428), dtype=torch.bool, device=offsets.device)
+    covered.scatter_(1, cols, True)
+    return int(covered.sum()) * 27 + offsets.numel() * 4 + s * 16 * 513 * 4
+
+
+def kernel_phase(port, digit_prep, fixture, dev):
+    phase("3 kernel")
+    inputs = digit_strips(port, fixture, dev)
+    max_err, times = 0.0, {}
+    for name, (strips, offsets) in inputs.items():
+        got = digit_prep.prepare_digit_cells(strips, offsets)
+        want = digit_prep.prepare_digit_cells_reference(strips, offsets)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"digit-prep kernel != plain version on "
+                                 f"{name} strips, max abs difference {err}")
+        max_err = max(max_err, err)
+        times[name] = kernel_ms(
+            lambda: digit_prep.prepare_digit_cells(strips, offsets))[0]
+    strips, offsets = inputs["real"]
+    plain_ms, method = kernel_ms(
+        lambda: digit_prep.prepare_digit_cells_reference(strips, offsets))
+    bound_ms, bound_by = bound(digit_prep_bytes(offsets))
+    print(f"digit_prep at {N_STREAMS}x16 cells: equal bit for bit on noise, "
+          f"real and all-equal strips; kernel ms " + ", ".join(
+              f"{k} {v:.5f}" for k, v in times.items())
+          + f"; plain {plain_ms:.5f} ms ({method}) on the real strips; "
+          f"bound {bound_ms:.5f} ms ({bound_by})")
+    return {"max_abs_err": max_err, "ms": times["real"],
+            "ms_by_strips": times, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def models_phase(port, dev):
@@ -193,6 +326,11 @@ def models_phase(port, dev):
 
 def _pan(digits):
     return "".join(map(str, digits.tolist()))
+
+
+def fixture_pans(fixture):
+    return [_pan(d[:int(n)]) for d, n in zip(fixture["completed_digits"],
+                                             fixture["completed_n"])]
 
 
 def session_phase(port, kernels, params, fixture, dev):
@@ -222,8 +360,7 @@ def session_phase(port, kernels, params, fixture, dev):
                              ("hseg_score", fr.hseg.score, 1e-5)):
         np.testing.assert_allclose(value.cpu().numpy(), fixture[key],
                                    atol=SCORE_ATOL, rtol=rtol, err_msg=key)
-    pans = [_pan(d[:int(n)]) for d, n in zip(fixture["completed_digits"],
-                                             fixture["completed_n"])]
+    pans = fixture_pans(fixture)
     if not state.number_complete.all() or pans != [
             _pan(d[:int(n)]) for d, n in zip(state.completed_digits.cpu(),
                                              state.completed_n.cpu())]:
@@ -278,7 +415,8 @@ def serving_phase(port, kernels, params, fixture, pans, card, dev):
           f"PAN-only, {STEPS} steps after {WARMUP} warm-up; all streams "
           f"complete; peak memory {peak_mib:.1f} MiB; card {card}")
 
-    # per-stage split: each stage alone at the serving shape, device time
+    # per-stage split: each stage alone at the serving shape, host launches
+    # included
     frames = steps[0]
     vseg = port.scan.best_n_vseg(params["vseg_mlp"], frames)
     strip = port.scan.frame.pan_strip(frames, vseg.y_offset)
@@ -296,15 +434,12 @@ def serving_phase(port, kernels, params, fixture, pans, card, dev):
     }
     split["rest (strip, gates, session)"] = split["step"] - sum(
         v for k, v in split.items() if k != "step")
-    print("stage split, median device ms of 10: " + ", ".join(
+    print("stage split, median ms of 10 event-timed calls: " + ", ".join(
         f"{k} {v:.3f}" for k, v in split.items()))
     print(f"kernel launches on this path: {launches}")
-    return launches
-
-
-def load_npz(path):
-    with np.load(path) as f:
-        return {k: f[k] for k in f.files}
+    return {"launches": launches, "step_ms": step_ms,
+            "frames_per_s": N_STREAMS * STEPS / elapsed,
+            "peak_mib": peak_mib, "split": split}
 
 
 def _bits_equal(a, b):
@@ -325,6 +460,34 @@ def _quads(guide, rng, n):
         -12.0, 12.0, (n, 4, 2))).astype(np.float32))
 
 
+def persp_systems(src, dst):
+    """The 8x8 systems A h = b of llcv_calc_persp_transform (cv/warp.cpp:
+    46-67) for src (S, 4, 2) and dst (4, 2): the library call's input."""
+    s = src.shape[0]
+    sx, sy = src[:, :, 0], src[:, :, 1]
+    dx, dy = dst[None, :, 0].expand(s, 4), dst[None, :, 1].expand(s, 4)
+    zero, one = torch.zeros_like(sx), torch.ones_like(sx)
+    top = torch.stack([sx, sy, one, zero, zero, zero, -sx * dx, -sy * dx], 2)
+    bot = torch.stack([zero, zero, zero, sx, sy, one, -sx * dy, -sy * dy], 2)
+    return torch.cat([top, bot], 1), torch.cat([dx, dy], 1)[:, :, None]
+
+
+def persp_qr_flops():
+    """f32 operations of one stream's solve, counted as csrc/persp_qr.cu
+    does them (every multiply, add, divide and square root)."""
+    n, ops = 8, 16                              # the system's 16 products
+    for k in range(n):                          # Householder QR
+        nt = n - 1 - k
+        if nt:
+            ops += 2 * nt - 1 + 3 + 1 + nt + 2  # tsq, beta, c0-beta, ess, tau
+            ops += nt * 2 * nt + 2 * nt + nt * (1 + 2 * nt)   # apply
+    for k in range(n):                          # Q^T b
+        nt = n - 1 - k
+        ops += 2 if nt == 0 else 2 * nt + 2 + 3 * nt
+    ops += sum(1 + 2 * j for j in range(n))     # back-substitution
+    return ops
+
+
 def persp_phase(persp_qr, dev):
     phase("7 persp")
     rng = np.random.RandomState(1)
@@ -343,49 +506,94 @@ def persp_phase(persp_qr, dev):
         raise AssertionError("want finite homographies for the quads and a "
                              "non-finite one for the all-zero corners")
     src = src[:N_STREAMS].contiguous()
-    ms = event_ms(lambda: persp_qr.eigen_persp_transform_batched(src, dst),
-                  KERNEL_REPS)
-    plain_ms = event_ms(lambda: persp_qr.persp_transform_reference(src, dst),
-                        KERNEL_REPS)
+    ms, method = kernel_ms(
+        lambda: persp_qr.eigen_persp_transform_batched(src, dst))
+    plain_ms, plain_method = kernel_ms(
+        lambda: persp_qr.persp_transform_reference(src, dst))
+    a, b = persp_systems(src, dst)
+    library_ms, library_method = kernel_ms(
+        lambda: torch.linalg.solve_ex(a, b))
+    solved = torch.linalg.solve_ex(a, b)[0][:, :, 0]
+    lib_err = (solved - got[:N_STREAMS].reshape(-1, 9)[:, :8]).abs().max()
+    n_bytes = src.numel() * 4 + dst.numel() * 4 + N_STREAMS * 9 * 4
+    bound_ms, bound_by = bound(n_bytes, N_STREAMS * persp_qr_flops())
     print(f"persp_qr at {N_STREAMS} streams (+1 all-zero set): equal bit for "
-          f"bit, NaN included; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(median of {KERNEL_REPS})")
-    return max_err, ms, plain_ms
+          f"bit, NaN included; kernel {ms:.5f} ms ({method}), plain "
+          f"{plain_ms:.5f} ms ({plain_method}), torch.linalg.solve_ex "
+          f"{library_ms:.5f} ms ({library_method}; max abs difference from "
+          f"the kernel {lib_err.item():.3g}); bound {bound_ms:.7f} ms "
+          f"({bound_by}: {n_bytes} B, {persp_qr_flops()} f32 operations a "
+          f"stream)")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
-def warp_phase(port, warp_gather, dev):
+def tapped_pixels(port, m, frame_shape):
+    """How many frame pixels the warp's taps read, over all streams."""
+    s = m.shape[0]
+    in_h, in_w = frame_shape
+    xq, yq = port.ops.warp_coord_maps(m, CARD_SHAPE)
+    x0, y0 = (xq >> 5).reshape(s, -1), (yq >> 5).reshape(s, -1)
+    read = torch.zeros((s, in_h * in_w + 1), dtype=torch.bool,
+                       device=m.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            x, y = x0 + dx, y0 + dy
+            inside = (x >= 0) & (x < in_w) & (y >= 0) & (y < in_h)
+            # taps outside the frame land on the spare last column
+            idx = torch.where(inside, y * in_w + x, in_h * in_w)
+            read.scatter_(1, idx.to(torch.int64), True)
+    return int(read[:, :-1].sum())
+
+
+def warp_phase(port, warp, dev):
     phase("8 warp")
     rng = np.random.RandomState(2)
     frames = torch.from_numpy(rng.randint(
-        0, 256, (N_STREAMS, 480, 640)).astype(np.uint8)).to(dev)
+        0, 256, (N_STREAMS + 1,) + FRAME_SHAPE).astype(np.uint8)).to(dev)
     dst = torch.tensor(CARD_DEST, dtype=torch.float32, device=dev)
-    results = {}
+    max_err, timed, times = 0, None, {}
     for name, guide, transpose in (("landscape", GUIDE_LANDSCAPE, False),
                                    ("portrait", GUIDE_PORTRAIT, True)):
-        m = port.ops.eigen_persp_transform(_quads(guide, rng, N_STREAMS)
-                                           .to(dev), dst)
-        xq, yq = port.ops.warp_coord_maps(m, CARD_SHAPE)
-        image = frames
-        if transpose:    # the portrait warp reads the transposed frame
-            image, xq, yq = frames.transpose(1, 2).contiguous(), yq, xq
-        got = warp_gather.warp_gather_exact(image, xq, yq)
-        want = warp_gather.warp_gather_reference(image, xq, yq)
+        # the last stream's corners are all zero: a NaN homography
+        quads = torch.cat([_quads(guide, rng, N_STREAMS),
+                           torch.zeros((1, 4, 2))]).to(dev)
+        m = port.ops.eigen_persp_transform(quads, dst)
+        got = warp.warp_perspective_exact(frames, m, CARD_SHAPE, transpose)
+        want = warp.warp_perspective_reference(frames, m, CARD_SHAPE,
+                                               transpose)
         torch.cuda.synchronize()
         err = (got.to(torch.int32) - want.to(torch.int32)).abs().max().item()
         if not torch.equal(got, want):
-            raise AssertionError(f"warp-gather kernel != plain version "
-                                 f"({name}), max abs difference {err}")
-        results[name] = (image, xq, yq, err)
-    image, xq, yq, err = results["landscape"]
-    max_err = max(r[3] for r in results.values())
-    ms = event_ms(lambda: warp_gather.warp_gather_exact(image, xq, yq),
-                  KERNEL_REPS)
-    plain_ms = event_ms(
-        lambda: warp_gather.warp_gather_reference(image, xq, yq), KERNEL_REPS)
-    print(f"warp_gather at {N_STREAMS} streams, landscape and portrait: "
-          f"equal u8 for u8; landscape kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms (median of {KERNEL_REPS})")
-    return float(max_err), ms, plain_ms
+            raise AssertionError(f"warp kernel != plain route ({name}), max "
+                                 f"abs difference {err}")
+        if torch.isfinite(m[-1]).all() or got[-1].any():
+            raise AssertionError("want a NaN homography for the all-zero "
+                                 "corners and a zero card from it")
+        max_err = max(max_err, err)
+        args = (frames[:N_STREAMS].contiguous(), m[:N_STREAMS].contiguous(),
+                CARD_SHAPE, transpose)
+        times[name], method = kernel_ms(
+            lambda: warp.warp_perspective_exact(*args))
+        timed = timed or args           # the serving path's: landscape
+    frames, m, _, transpose = timed
+    ms = times["landscape"]
+    plain_ms, plain_method = kernel_ms(
+        lambda: warp.warp_perspective_reference(*timed))
+    pixels = N_STREAMS * CARD_SHAPE[0] * CARD_SHAPE[1]
+    n_bytes = tapped_pixels(port, m, FRAME_SHAPE) + m.numel() * 4 + pixels
+    flops = pixels * WARP_F64_PER_PIXEL + N_STREAMS * WARP_F64_PER_STREAM
+    bound_ms, bound_by = bound(n_bytes, flops, "f64")
+    print(f"warp at {N_STREAMS} streams (+1 NaN homography), landscape and "
+          f"portrait: kernel == plain route u8 for u8; kernel landscape "
+          f"{ms:.5f} ms, portrait {times['portrait']:.5f} ms ({method}), "
+          f"plain landscape {plain_ms:.5f} ms ({plain_method});"
+          f" bound {bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {flops} f64 "
+          f"operations)")
+    return {"max_abs_err": float(max_err), "ms": ms,
+            "ms_by_orientation": times, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _corners(corner_points):
@@ -460,6 +668,50 @@ def camera_session_phase(port, kernels, params, fixture, dev):
     return pans
 
 
+def card_maps(fn):
+    """The ops of one call of fn whose output is a float64 or int32 tensor
+    of the card's shape (S, 270, 428): the coordinate maps and their
+    temporaries, where they go through device memory."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.found = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if (isinstance(t, torch.Tensor)
+                        and tuple(t.shape[-2:]) == CARD_SHAPE
+                        and t.dtype in (torch.float64, torch.int32)):
+                    self.found.append(f"{func}:{t.dtype}")
+            return out
+
+    with Record() as record:
+        fn()
+    torch.cuda.synchronize()
+    return record.found
+
+
+def profile_step(fn):
+    """One call of fn under torch.profiler: device ms in all, the number of
+    device operations, and those whose kernel works on float64 (name
+    holds "double")."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    f64 = [e for e in rows if "double" in e.key]
+    return {"device_ms": sum(e.self_device_time_total for e in rows) / 1e3,
+            "device_ops": sum(e.count for e in rows),
+            "f64_ops": sum(e.count for e in f64),
+            "f64_ms": sum(e.self_device_time_total for e in f64) / 1e3}
+
+
 def camera_serving_phase(port, kernels, params, fixture, pans, card, dev):
     phase("10 camera serving")
     n_src, n_frames = fixture["y"].shape[:2]
@@ -502,35 +754,44 @@ def camera_serving_phase(port, kernels, params, fixture, pans, card, dev):
           f"after {WARMUP} warm-up; all streams complete; peak memory "
           f"{peak_mib:.1f} MiB; card {card}")
 
-    # per-stage split: each stage alone at the serving shape, device time
+    # per-stage split: each stage alone at the serving shape, host launches
+    # included
     y, cb, cr = steps[0]
     dst = torch.tensor(CARD_DEST, dtype=torch.float32, device=dev)
     _, corner_points = port.api.detect_edges(y, cb, cr)
     corners = _corners(corner_points)
-    xq, yq = port.ops.warp_coord_maps(
-        port.ops.eigen_persp_transform(corners, dst), CARD_SHAPE)
-    cards = kernels["warp_gather"].warp_gather_exact(y, xq, yq)
+    m = port.ops.eigen_persp_transform(corners, dst)
+    cards = port.ops.warp_perspective_exact(y, m, CARD_SHAPE)
 
-    def maps():
-        return port.ops.warp_coord_maps(
-            port.ops.eigen_persp_transform(corners, dst), CARD_SHAPE)
+    def step():
+        return port.batched_camera_step(params, states, y, cb, cr)
 
     split = {
         "detect": event_ms(lambda: port.api.detect_edges(y, cb, cr), 10),
-        "homography + maps": event_ms(maps, 10),
-        "warp": event_ms(lambda: kernels["warp_gather"].warp_gather_exact(
-            y, xq, yq), 10),
+        "homography": event_ms(
+            lambda: port.ops.eigen_persp_transform(corners, dst), 10),
+        "warp": event_ms(lambda: port.ops.warp_perspective_exact(
+            y, m, CARD_SHAPE), 10),
         "scan": event_ms(lambda: port.batched_scanner_step(
             params, states, cards), 10),
-        "step": event_ms(lambda: port.batched_camera_step(
-            params, states, y, cb, cr), 10),
+        "step": event_ms(step, 10),
     }
     split["rest (telemetry, gating)"] = split["step"] - sum(
         v for k, v in split.items() if k != "step")
-    print("camera stage split, median device ms of 10: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in split.items()))
+    print("camera stage split, median ms of 10 event-timed calls: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    maps = card_maps(step)
+    profile = profile_step(step)
+    print(f"one step: {len(maps)} card-shaped float64/int32 tensors made "
+          f"({sorted(set(maps))}); profile: {profile['device_ms']:.3f} ms "
+          f"of device time over {profile['device_ops']} device operations, "
+          f"{profile['f64_ops']} of them on float64 "
+          f"({profile['f64_ms']:.3f} ms)")
     print(f"kernel launches on this path: {launches}")
-    return launches
+    return {"launches": launches, "step_ms": step_ms,
+            "frames_per_s": N_STREAMS * STEPS / elapsed,
+            "peak_mib": peak_mib, "split": split, "card_maps": maps,
+            "profile": profile}
 
 
 def main():
@@ -545,27 +806,28 @@ def main():
     dev = torch.device("cuda", 0)
     card = device_phase()
     build_phase(kernels)
-    measured = {"digit_prep": kernel_phase(digit_prep, dev)}
+    fixture = load_npz(fixture_path(port, "smoke_session.npz"))
+    measured = {"digit_prep": kernel_phase(port, digit_prep, fixture, dev)}
     params = models_phase(port, dev)
-    data = os.path.join(os.path.dirname(port.__file__), "data")
-    fixture = load_npz(os.path.join(data, "smoke_session.npz"))
     pans = session_phase(port, kernels, params, fixture, dev)
-    scan_launches = serving_phase(port, kernels, params, fixture, pans, card,
-                                  dev)
+    scan = serving_phase(port, kernels, params, fixture, pans, card, dev)
     measured["persp_qr"] = persp_phase(persp_qr, dev)
     measured["warp_gather"] = warp_phase(port, warp_gather, dev)
-    camera = load_npz(os.path.join(data, "camera_session.npz"))
+    camera = load_npz(fixture_path(port, "camera_session.npz"))
     camera_pans = camera_session_phase(port, kernels, params, camera, dev)
-    launches = camera_serving_phase(port, kernels, params, camera,
-                                    camera_pans, card, dev)
+    serving = camera_serving_phase(port, kernels, params, camera,
+                                   camera_pans, card, dev)
+    if serving["card_maps"]:
+        raise AssertionError(f"the camera step made card-shaped float64 or "
+                             f"int32 tensors: {serving['card_maps']}")
 
     print(card)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
-        "replaces": KERNELS[name][1], "launches": launches[name],
-        "launches_scan_path": scan_launches[name],
-        "max_abs_err": measured[name][0], "ms": measured[name][1],
-        "plain_ms": measured[name][2]} for name in KERNELS]}))
+        "replaces": KERNELS[name][1],
+        "launches": serving["launches"][name],
+        "launches_scan_path": scan["launches"][name],
+        **measured[name]} for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""The port on an NVIDIA card: each CUDA kernel (digit prep, persp QR, warp
-gather) against its plain version, and the scan and camera paths on the
+"""The port on an NVIDIA card: each CUDA kernel (digit prep, persp QR, the
+exact warp) against its plain version, and the scan and camera paths on the
 card against the same paths on the CPU.
 
 These tests skip without a card. They import neither jax nor the JAX
@@ -17,11 +17,12 @@ import torch
 import cardio_dmz_tpu_torch
 from cardio_dmz_tpu_torch.api import preprocess_frame
 from cardio_dmz_tpu_torch.models import load_all_params
-from cardio_dmz_tpu_torch.ops import warp_coord_maps
 from cardio_dmz_tpu_torch.ops.cuda import digit_prep, persp_qr, warp_gather
 from cardio_dmz_tpu_torch.parallel import (
     batched_camera_step, init_stream_states)
-from cardio_dmz_tpu_torch.scan import scan_card_image
+from cardio_dmz_tpu_torch.scan import (
+    best_n_hseg, best_n_vseg, scan_card_image)
+from cardio_dmz_tpu_torch.scan.frame import pan_strip
 from torch_parity import cuda_device  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -47,20 +48,44 @@ def _bits(x):
     return x.contiguous().view(torch.int32)
 
 
-@pytest.mark.parametrize("n_streams", [1, 256])
-def test_kernel_matches_plain(cuda_device, n_streams):  # noqa: F811
+def _strips(kind, n_streams, device):
+    """(strips, offsets) at n_streams: uniform noise with sorted random
+    offsets; the recorded fixture frames' PAN strips with their vseg row
+    and hseg offsets, as the serving path hands them to the kernel; or an
+    all-equal strip (every gradient 0, all increments on one bin)."""
     rng = np.random.RandomState(n_streams)
     strips = torch.from_numpy(rng.randint(
-        0, 256, (n_streams, 27, 428)).astype(np.uint8)).to(cuda_device)
+        0, 256, (n_streams, 27, 428)).astype(np.uint8)).to(device)
     offsets = np.sort(rng.randint(0, 410, (n_streams, 16)), axis=1)
     offsets[:, 0], offsets[:, -1] = 0, 409
-    offsets = torch.from_numpy(offsets.astype(np.int32)).to(cuda_device)
+    offsets = torch.from_numpy(offsets.astype(np.int32)).to(device)
+    if kind == "equal":
+        strips = torch.full_like(strips, 77)
+    if kind == "real":
+        with np.load(os.path.join(DATA, "smoke_session.npz")) as f:
+            frames = f["frames"].reshape(-1, 270, 428)
+        frames = np.tile(frames, (-(-n_streams // len(frames)), 1, 1))
+        frames = torch.from_numpy(frames[:n_streams]).to(device)
+        params = load_all_params(device)
+        vseg = best_n_vseg(params["vseg_mlp"], frames)
+        strips = pan_strip(frames, vseg.y_offset).contiguous()
+        offsets = best_n_hseg(strips, vseg.pattern_type,
+                              vseg.number_length).offsets.to(torch.int32)
+    return strips, offsets.contiguous()
+
+
+@pytest.mark.parametrize("kind", ["noise", "real", "equal"])
+@pytest.mark.parametrize("n_streams", [1, 256])
+def test_kernel_matches_plain(cuda_device, n_streams, kind):  # noqa: F811
+    strips, offsets = _strips(kind, n_streams, cuda_device)
     before = digit_prep.LAUNCHES
     got = digit_prep.prepare_digit_cells(strips, offsets)
     torch.cuda.synchronize()
     assert digit_prep.LAUNCHES == before + 1
     assert torch.equal(got, digit_prep.prepare_digit_cells_reference(
         strips, offsets))
+    assert torch.equal(got.cpu(), digit_prep.prepare_digit_cells_reference(
+        strips.cpu(), offsets.cpu()))
 
 
 @pytest.mark.parametrize("n_streams", [1, 256])
@@ -95,24 +120,28 @@ def test_persp_kernel_matches_plain(cuda_device, n_streams):  # noqa: F811
 @pytest.mark.parametrize("n_streams", [1, 256])
 def test_warp_kernel_matches_plain(cuda_device, n_streams,  # noqa: F811
                                    orientation):
-    """u8 for u8 on uniform noise through envelope quads; the portrait
-    warp reads the transposed frame with the maps swapped."""
+    """The warp kernel, which computes the coordinate maps itself, u8 for
+    u8 against its plain route (float64 maps, then the gather) on uniform
+    noise through envelope quads, and a NaN homography from all-zero
+    corners, whose card is 0; the portrait warp resamples the transposed
+    frame."""
     rng = np.random.RandomState(n_streams)
-    image = torch.from_numpy(rng.randint(0, 256, (n_streams, 480, 640))
+    image = torch.from_numpy(rng.randint(1, 256, (n_streams + 1, 480, 640))
                              .astype(np.uint8)).to(cuda_device)
-    m = persp_qr.eigen_persp_transform_batched(
-        _quads(orientation, n_streams, 7).to(cuda_device),
-        CARD_DEST.to(cuda_device))
-    xq, yq = warp_coord_maps(m, (270, 428))
-    if orientation == "portrait":
-        image, xq, yq = image.transpose(1, 2).contiguous(), yq, xq
+    quads = torch.cat([_quads(orientation, n_streams, 7),
+                       torch.zeros((1, 4, 2))])
+    m = persp_qr.eigen_persp_transform_batched(quads.to(cuda_device),
+                                               CARD_DEST.to(cuda_device))
+    transpose = orientation == "portrait"
     before = warp_gather.LAUNCHES
-    got = warp_gather.warp_gather_exact(image, xq, yq)
+    got = warp_gather.warp_perspective_exact(image, m, (270, 428), transpose)
     torch.cuda.synchronize()
     assert warp_gather.LAUNCHES == before + 1
-    assert torch.equal(got, warp_gather.warp_gather_reference(image, xq, yq))
-    assert torch.equal(got.cpu(), warp_gather.warp_gather_reference(
-        image.cpu(), xq.cpu(), yq.cpu()))
+    assert torch.equal(got, warp_gather.warp_perspective_reference(
+        image, m, (270, 428), transpose))
+    assert torch.equal(got.cpu(), warp_gather.warp_perspective_reference(
+        image.cpu(), m.cpu(), (270, 428), transpose))
+    assert not got[-1].any() and got[:-1].any()
 
 
 def test_camera_step_on_card_matches_cpu(cuda_device):  # noqa: F811

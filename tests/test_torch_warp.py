@@ -6,10 +6,12 @@ against the JAX package's, and the portrait camera preprocessing.
   corner sets and degenerate ones, bit for bit, NaN included;
 * the float64 coordinate maps against persp_host's real double and the
   JAX package's double-float form, exactly;
-* the warp-gather plain version against warp_perspective_exact with the
-  detector envelope's windows (api.warp_src_bounds), u8-equal, landscape
-  and portrait. Quads come from that envelope: outside it the JAX forms
-  read 0 for taps beyond their windows.
+* the exact warp's plain route (the maps, then the gather, from the
+  homography) against warp_perspective_exact with the detector
+  envelope's windows (api.warp_src_bounds), u8-equal, landscape and
+  portrait, a NaN homography included. Quads come from that envelope:
+  outside it the JAX forms read 0 for taps beyond their windows;
+* the warp wrapper's checks and CPU route.
 """
 
 import functools
@@ -141,7 +143,13 @@ def test_coord_maps_of_degenerate_homographies_stay_defined():
     m = _port_persp(_degenerate())
     x, y = ppersp.warp_coord_maps(torch.from_numpy(m), OUT)
     assert x.dtype == torch.int32 and x.shape == (6,) + OUT
-    assert int(x[0].abs().max()) == 0     # a NaN map reads as 0
+    # the all-zero corners give a NaN homography; its maps read INT32_MIN,
+    # as cvRound gives NaN on x86 and the real-double chain does
+    assert int(x[0].max()) == int(y[0].min()) == -2**31
+    with np.errstate(all="ignore"):
+        hx, hy = persp_host.warp_coord_maps(m[0], OUT)
+    np.testing.assert_array_equal(to_np(x[0]), hx)
+    np.testing.assert_array_equal(to_np(y[0]), hy)
 
 
 @pytest.mark.parametrize("orientation", [ORIENTATION_LANDSCAPE_RIGHT,
@@ -152,45 +160,90 @@ def test_warp_plain_matches_jax_windowed(orientation):
     op: jitted on the CPU, XLA may fuse the multiplies and adds of its
     double-float coordinate math into FMAs and move a quantized
     coordinate across a rounding boundary (ROADMAP.md, queue 3), which
-    neither the TPU nor the real double chain does."""
+    neither the TPU nor the real double chain does. The last stream's
+    corners are all zero: its homography is NaN and its card 0."""
     rng = np.random.RandomState(11)
-    img = rng.randint(0, 256, (3, 480, 640)).astype(np.uint8)
-    m = _port_persp(_quads(orientation, 3, 20 + orientation))
+    img = rng.randint(1, 256, (4, 480, 640)).astype(np.uint8)
+    m = _port_persp(np.concatenate([_quads(orientation, 3, 20 + orientation),
+                                    _degenerate()[:1]]))
     transpose = papi._orientation_transposes(orientation)
-    got = to_np(pwarp.warp_perspective_exact(
-        torch.from_numpy(img), torch.from_numpy(m), OUT,
-        transpose=transpose))
+    got = to_np(warp_gather.warp_perspective_reference(
+        torch.from_numpy(img), torch.from_numpy(m), OUT, transpose))
+    entry = pwarp.warp_perspective_exact(
+        torch.from_numpy(img), torch.from_numpy(m), OUT, transpose=transpose)
+    np.testing.assert_array_equal(to_np(entry), got)   # the CPU route
     bounds = japi.warp_src_bounds((480, 640), orientation)
     with jax.disable_jit():
         want = np.asarray(jax.vmap(lambda im, mm: jwarp.warp_perspective_exact(
             im, mm, OUT, src_bounds=bounds, transpose=transpose))(img, m))
     np.testing.assert_array_equal(got, want)
-    for s in range(3):
-        np.testing.assert_array_equal(got[s], persp_host.warp_exact(
-            img[s], m[s], OUT))
+    for s in range(4):
+        with np.errstate(all="ignore"):
+            host = persp_host.warp_exact(img[s], m[s], OUT)
+        np.testing.assert_array_equal(got[s], host)
+    assert not got[3].any()
 
 
 def test_warp_gather_plain_reads_zero_outside():
     img = torch.full((1, 4, 5), 200, dtype=torch.uint8)
-    # x0 = -1 (only the x0+1 tap inside), far out, and inside
-    xq = torch.tensor([[[-32 + 16, -10_000, 32 + 8]]], dtype=torch.int32)
-    yq = torch.tensor([[[32, 32, 32]]], dtype=torch.int32)
-    got = to_np(warp_gather.warp_gather_exact(img, xq, yq))[0, 0]
-    assert got.tolist() == [100, 0, 200]
+    # x0 = -1 (only the x0+1 tap inside), far out, inside, and INT32_MIN (a
+    # NaN coordinate)
+    xq = torch.tensor([[[-32 + 16, -10_000, 32 + 8, -2**31]]],
+                      dtype=torch.int32)
+    yq = torch.tensor([[[32, 32, 32, 32]]], dtype=torch.int32)
+    got = to_np(warp_gather.warp_gather_reference(img, xq, yq))[0, 0]
+    assert got.tolist() == [100, 0, 200, 0]
+
+
+@pytest.mark.parametrize("orientation", [ORIENTATION_LANDSCAPE_RIGHT,
+                                         ORIENTATION_PORTRAIT])
+def test_warp_of_nan_homography_is_a_zero_card(orientation):
+    """All-zero corners (a frame where no card was found) give a NaN
+    homography; its warp is defined and 0 everywhere, through unwarp_card
+    and the plain route, whatever the frame holds."""
+    img = torch.full((2, 480, 640), 255, dtype=torch.uint8)
+    transpose = papi._orientation_transposes(orientation)
+    card = pwarp.unwarp_card(img, torch.zeros((2, 4, 2)), OUT, transpose)
+    assert card.shape == (2,) + OUT and card.dtype == torch.uint8
+    assert not card.any()
+    m = torch.full((1, 3, 3), float("nan"))
+    assert not warp_gather.warp_perspective_reference(
+        img[:1], m, OUT, transpose).any()
 
 
 def test_warp_gather_wrapper_checks():
     img = torch.zeros((2, 8, 8), dtype=torch.uint8)
-    q = torch.zeros((2, 3, 4), dtype=torch.int32)
+    m = torch.eye(3).expand(2, 3, 3).contiguous()
     before = warp_gather.LAUNCHES
-    assert warp_gather.warp_gather_exact(img, q, q).shape == (2, 3, 4)
+    for transpose in (False, True):
+        got = warp_gather.warp_perspective_exact(img, m, (3, 4), transpose)
+        assert got.shape == (2, 3, 4) and got.dtype == torch.uint8
     assert warp_gather.LAUNCHES == before and not warp_gather.KERNEL.loaded
+    with pytest.raises(TypeError):      # dtypes
+        warp_gather.warp_perspective_exact(img.int(), m, (3, 4))
     with pytest.raises(TypeError):
-        warp_gather.warp_gather_exact(img, q.long(), q)
+        warp_gather.warp_perspective_exact(img, m.double(), (3, 4))
+    with pytest.raises(TypeError):      # the transpose flag is a bool
+        warp_gather.warp_perspective_exact(img, m, (3, 4), 1)
+    with pytest.raises(ValueError):     # shapes
+        warp_gather.warp_perspective_exact(img[:1], m, (3, 4))
     with pytest.raises(ValueError):
-        warp_gather.warp_gather_exact(img[:1], q, q)
+        warp_gather.warp_perspective_exact(img[0], m[0], (3, 4))
     with pytest.raises(ValueError):
-        warp_gather.warp_gather_exact(img.transpose(1, 2), q, q)
+        warp_gather.warp_perspective_exact(img, m[:, :2], (3, 4))
+    with pytest.raises(ValueError):     # out_shape
+        warp_gather.warp_perspective_exact(img, m, (0, 4))
+    with pytest.raises(ValueError):
+        warp_gather.warp_perspective_exact(img, m, (3, 4, 1))
+    with pytest.raises(ValueError):     # devices
+        warp_gather.warp_perspective_exact(img, m.to("meta"), (3, 4))
+    with pytest.raises(ValueError):     # no route off the CPU and CUDA
+        warp_gather.warp_perspective_exact(img.to("meta"), m.to("meta"),
+                                           (3, 4))
+    with pytest.raises(ValueError):     # contiguity
+        warp_gather.warp_perspective_exact(img.transpose(1, 2), m, (3, 4))
+    with pytest.raises(ValueError):
+        warp_gather.warp_perspective_exact(img, m.transpose(1, 2), (3, 4))
 
 
 # --- the camera preprocessing in a portrait orientation --------------------
