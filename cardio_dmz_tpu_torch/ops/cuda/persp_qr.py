@@ -4,12 +4,20 @@ The kernel, csrc/persp_qr.cu, replaces the Pallas TPU kernel
 cardio_dmz_tpu/ops/pallas/persp_qr.py (eigen_persp_transform_batched /
 _qr_kernel / _qr_solve_lanes): for every stream, the 8x8 system of
 llcv_calc_persp_transform (cv/warp.cpp:34-125) from its four source
-corners to the card's four destination corners, solved as Eigen 3.2's f32
-HouseholderQR does it, op for op, with one stream per thread. The f32
-sequence is the numpy twin cardio_dmz_tpu/ops/persp_host.py's.
+corners to four destination corners (the card's, shared by every stream,
+or a set per stream as the TPU kernel takes them), solved as Eigen 3.2's
+f32 HouseholderQR does it, op for op. The f32 sequence is the numpy twin
+cardio_dmz_tpu/ops/persp_host.py's.
 
-What bounds it on an H100: serial latency, about a thousand dependent f32
-ops per thread; 256 streams fill two blocks. The TPU kernel rebuilt
+What bounds it on an H100: the solve's chain of dependent operations
+(each Householder step's norm, square root, divisions and next-column
+update, then eight divisions of the back-substitution), not bytes. So the
+kernel gives each stream a group of 16 lanes, lane j < 8 holding column j
+of the system and lane 8 its right-hand side: a step's rank-1 update runs
+on every trailing column at once, each lane summing its own dot products
+in Eigen's order, and a step's divisions run one a lane, side by side, so
+that only the chain stays serial. Two streams a warp and four warps a
+block spread 256 streams over 32 SMs. The TPU kernel rebuilt
 correctly rounded division and square root by a Markstein correction;
 CUDA's __fdiv_rn/__fsqrt_rn are IEEE, and the library is built with
 --fmad=false so that no multiply and add fuse into an FMA.
@@ -27,7 +35,8 @@ import torch
 from ._build import CudaKernel
 
 KERNEL = CudaKernel("persp_qr", "persp_qr_launch",
-                    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p],
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_void_p],
                     flags=("--fmad=false",))
 
 # Launches of the CUDA kernel since the last reset; the plain version does
@@ -39,9 +48,10 @@ def _check(src, dst):
     if src.dtype != torch.float32 or dst.dtype != torch.float32:
         raise TypeError(f"corners must be float32; got {src.dtype} and "
                         f"{dst.dtype}")
-    if src.dim() != 3 or src.shape[1:] != (4, 2) or dst.shape != (4, 2):
-        raise ValueError(f"want source (S, 4, 2) and dest (4, 2); got "
-                         f"{tuple(src.shape)} and {tuple(dst.shape)}")
+    if (src.dim() != 3 or src.shape[1:] != (4, 2)
+            or dst.shape not in ((4, 2), (src.shape[0], 4, 2))):
+        raise ValueError(f"want source (S, 4, 2) and dest (4, 2) or (S, 4, "
+                         f"2); got {tuple(src.shape)} and {tuple(dst.shape)}")
     if src.device != dst.device:
         raise ValueError(f"source on {src.device}, dest on {dst.device}")
     if not (src.is_contiguous() and dst.is_contiguous()):
@@ -72,10 +82,12 @@ def _sqrt(x):
 
 def persp_transform_reference(src, dst):
     """The plain PyTorch version: persp_host.persp_transform batched over
-    streams. src (S, 4, 2) f32, dst (4, 2) f32 -> (S, 3, 3) f32."""
+    streams. src (S, 4, 2) f32, dst (4, 2) or (S, 4, 2) f32 -> (S, 3, 3)
+    f32."""
     s = src.shape[0]
+    dst = dst.expand(s, 4, 2)
     sx, sy = src[:, :, 0], src[:, :, 1]                    # (S, 4)
-    dx, dy = dst[None, :, 0].expand(s, 4), dst[None, :, 1].expand(s, 4)
+    dx, dy = dst[:, :, 0], dst[:, :, 1]
     zero, one = torch.zeros_like(sx), torch.ones_like(sx)
     top = torch.stack([sx, sy, one, zero, zero, zero, (-sx) * dx,
                        (-sy) * dx], dim=2)
@@ -123,8 +135,9 @@ def persp_transform_reference(src, dst):
 def eigen_persp_transform_batched(src, dst):
     """Every stream's src -> dst homography.
 
-    src: (S, 4, 2) float32 source corners (x, y); dst: (4, 2) float32
-    destination corners. Returns (S, 3, 3) float32, row-major, m22 = 1.
+    src: (S, 4, 2) float32 source corners (x, y); dst: float32
+    destination corners, (4, 2) for every stream or (S, 4, 2), one set a
+    stream. Returns (S, 3, 3) float32, row-major, m22 = 1.
     A CUDA tensor goes through the CUDA kernel; a CPU tensor through the
     plain version."""
     global LAUNCHES
@@ -139,6 +152,7 @@ def eigen_persp_transform_batched(src, dst):
         return out
     with torch.cuda.device(src.device):
         KERNEL.launch(src.data_ptr(), dst.data_ptr(), out.data_ptr(), s,
+                      0 if dst.dim() == 2 else 8,
                       torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     return out

@@ -23,7 +23,9 @@ _NAN_MAP = -2**31   # cvRound(NaN) on x86
 def eigen_persp_transform(source_points, dest_points):
     """Every stream's src -> dst homography, llcv_calc_persp_transform
     (cv/warp.cpp:34-125). source_points: (S, 4, 2) f32; dest_points:
-    (4, 2) f32. Returns (S, 3, 3) f32, row-major, m22 = 1."""
+    (4, 2) f32, shared by every stream, or (S, 4, 2), a set a stream, as
+    the JAX package's batched form takes them. Returns (S, 3, 3) f32,
+    row-major, m22 = 1."""
     return eigen_persp_transform_batched(source_points.contiguous(),
                                          dest_points.contiguous())
 

@@ -25,7 +25,13 @@ without printing its last line:
             step ms, peak memory and a per-stage split
 7. persp    persp-QR kernel == its plain version, bit for bit and NaN
             included, on 256 detector-realistic corner sets and an all-zero
-            one; kernel, plain and torch.linalg.solve_ex times
+            one, and at 1, 3, 255, 256 and 257 streams (degenerate sets
+            first: all zero, a repeated, an inf and a NaN corner) with the
+            card's destination and with a rectangle a stream; kernel, plain
+            and torch.linalg.solve_ex times at 256 streams, the bound, the
+            solve's dependency chain (persp_qr_ops, each op's latency
+            measured by tools/op_latency.cu) at the SM clock, and an empty
+            launch timed the same way, on a line of their own
 8. warp     the exact-warp kernel (coordinate maps computed in the kernel)
             == its plain route (float64 maps, then the gather), u8 for u8,
             on 256 uniform-noise frames through envelope quads, landscape
@@ -462,33 +468,168 @@ def _quads(guide, rng, n):
 
 def persp_systems(src, dst):
     """The 8x8 systems A h = b of llcv_calc_persp_transform (cv/warp.cpp:
-    46-67) for src (S, 4, 2) and dst (4, 2): the library call's input."""
+    46-67) for src (S, 4, 2) and dst (4, 2) or (S, 4, 2): the library
+    call's input."""
     s = src.shape[0]
+    dst = dst.expand(s, 4, 2)
     sx, sy = src[:, :, 0], src[:, :, 1]
-    dx, dy = dst[None, :, 0].expand(s, 4), dst[None, :, 1].expand(s, 4)
+    dx, dy = dst[:, :, 0], dst[:, :, 1]
     zero, one = torch.zeros_like(sx), torch.ones_like(sx)
     top = torch.stack([sx, sy, one, zero, zero, zero, -sx * dx, -sy * dx], 2)
     bot = torch.stack([zero, zero, zero, sx, sy, one, -sx * dy, -sy * dy], 2)
     return torch.cat([top, bot], 1), torch.cat([dx, dy], 1)[:, :, None]
 
 
-def persp_qr_flops():
-    """f32 operations of one stream's solve, counted as csrc/persp_qr.cu
-    does them (every multiply, add, divide and square root)."""
-    n, ops = 8, 16                              # the system's 16 products
-    for k in range(n):                          # Householder QR
+def persp_qr_ops(cycles=None):
+    """A model of one stream's solve in Eigen 3.2's f32 order (the order
+    that csrc/persp_qr.cu and persp_transform_reference keep, whichever
+    lane does an operation), on a system with no degenerate step:
+    (operations, chain, on_chain); tests/test_torch_warp.py holds its
+    count against a closed form. operations counts every multiply, add,
+    divide and square root; chain is the longest run of them each of
+    which waits for the one before,
+    each kind weighted by cycles[kind] ("add" for adds and subtractions,
+    "mul", "div", "sqrt"; 1 each by default, which counts operations), so
+    that no bit-exact order of this solve can finish sooner; on_chain
+    counts each kind on that run."""
+    cycles = cycles or {"add": 1, "mul": 1, "div": 1, "sqrt": 1}
+    n_ops = [0]
+    leaf = (0, {})
+
+    def op(kind, *args):       # a value is (chain cycles, kinds on it)
+        n_ops[0] += 1
+        length, kinds = max(args, key=lambda v: v[0])
+        return length + cycles[kind], {**kinds, kind: kinds.get(kind, 0) + 1}
+
+    def mul(x, y):
+        return op("mul", x, y)
+
+    def add(x, y):
+        return op("add", x, y)
+
+    def redux(p):
+        if len(p) < 4:
+            r = p[0]
+        else:
+            r, p = add(add(p[0], p[2]), add(p[1], p[3])), p[3:]
+        for v in p[1:]:
+            r = add(r, v)
+        return r
+
+    n = 8
+    a = [[leaf] * n for _ in range(n)]
+    c = [leaf] * n
+    for i in range(n):
+        a[i][6], a[i][7] = mul(leaf, leaf), mul(leaf, leaf)
+    taus = []
+    for k in range(n - 1):      # the last step is degenerate: tau 0
         nt = n - 1 - k
-        if nt:
-            ops += 2 * nt - 1 + 3 + 1 + nt + 2  # tsq, beta, c0-beta, ess, tau
-            ops += nt * 2 * nt + 2 * nt + nt * (1 + 2 * nt)   # apply
-    for k in range(n):                          # Q^T b
-        nt = n - 1 - k
-        ops += 2 if nt == 0 else 2 * nt + 2 + 3 * nt
-    ops += sum(1 + 2 * j for j in range(n))     # back-substitution
-    return ops
+        c0 = a[k][k]
+        tsq = redux([mul(a[i][k], a[i][k]) for i in range(k + 1, n)])
+        beta = op("sqrt", add(mul(c0, c0), tsq))
+        d = add(c0, beta)
+        ess = [op("div", a[i][k], d) for i in range(k + 1, n)]
+        tau = op("div", add(beta, c0), beta)
+        taus.append((tau, ess))
+        a[k][k] = beta
+        scaled = [mul(tau, e) for e in ess]
+        for j in range(k + 1, n):
+            tmp = add(redux([mul(ess[i], a[k + 1 + i][j])
+                             for i in range(nt)]), a[k][j])
+            a[k][j] = add(a[k][j], mul(tau, tmp))
+            for i in range(nt):
+                a[k + 1 + i][j] = add(a[k + 1 + i][j], mul(scaled[i], tmp))
+    for k, (tau, ess) in enumerate(taus):              # c = Q^T b
+        t = add(redux([mul(ess[i], c[k + 1 + i])
+                       for i in range(len(ess))]), c[k])
+        c[k] = add(c[k], mul(tau, t))
+        for i in range(len(ess)):
+            c[k + 1 + i] = add(c[k + 1 + i], mul(mul(tau, ess[i]), t))
+    c[n - 1] = mul(c[n - 1], add(leaf, leaf))          # H_7: 1 - tau
+    for j in range(n - 1, -1, -1):                     # back-substitution
+        c[j] = op("div", c[j], a[j][j])
+        for i in range(j):
+            c[i] = add(c[i], mul(c[j], a[i][j]))
+    chain, on_chain = max(c, key=lambda v: v[0])
+    return n_ops[0], chain, on_chain
+
+
+def op_cycles(dev):
+    """Cycles of one dependent add, multiply, IEEE division, IEEE square
+    root and warp shuffle on the card, and one warp's cycles an add on
+    eight independent chains ("add_issue"), from tools/op_latency.cu,
+    built here by ops/cuda/_build.py with the kernels' flags."""
+    import ctypes
+    from cardio_dmz_tpu_torch.ops.cuda import _build
+    probe = _build.CudaKernel("op_latency", "op_latency_launch",
+                              [ctypes.c_void_p] * 4, flags=("--fmad=false",))
+    probe.source = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tools", "op_latency.cu")
+    x = torch.tensor([1.5, 1.0 + 2.0**-10], device=dev)
+    sink = torch.empty(32, device=dev)
+    out = torch.zeros(6, dtype=torch.int64, device=dev)
+    probe.launch(x.data_ptr(), sink.data_ptr(), out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    reps = 512                              # op_latency.cu's kReps
+    return dict(zip(("add", "mul", "div", "sqrt", "shfl", "add_issue"),
+                    (v / reps for v in out.tolist())))
+
+
+def sm_clock_mhz():
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0])
+
+
+PERSP_COUNTS = (1, 3, 255, 256, 257)
+
+
+def dest_rects(rng, n):
+    """n distinct destination rectangles in the warp's corner order (tl,
+    tr, bl, br), corners at fractional positions: (n, 4, 2) float32."""
+    x0, y0 = rng.uniform(-20.0, 20.0, (2, n))
+    w, h = rng.uniform(200.0, 500.0, (2, n))
+    return np.stack(
+        [np.stack([x0, y0], 1), np.stack([x0 + w, y0], 1),
+         np.stack([x0, y0 + h], 1), np.stack([x0 + w, y0 + h], 1)],
+        1).astype(np.float32)
+
+
+def persp_cases(persp_qr, dev):
+    """The kernel against its plain version, bit for bit, at each of
+    PERSP_COUNTS streams, the last block (eight streams, two a warp) part
+    full but at 256: the degenerate sets (all zero, a repeated corner, an
+    inf and a NaN corner) first, then detector-realistic quads; with the
+    card's destination for every stream and with a rectangle a stream."""
+    rng = np.random.RandomState(3)
+    guide = np.float32(GUIDE_LANDSCAPE)
+    rep, inf, nan = guide.copy(), guide.copy(), guide.copy()
+    rep[1] = rep[0]
+    inf[3, 0], nan[0, 1] = np.inf, np.nan
+    pool = torch.cat([torch.from_numpy(np.stack(
+        [np.zeros_like(guide), rep, inf, nan])), _quads(
+            GUIDE_LANDSCAPE, rng, max(PERSP_COUNTS))]).to(dev)
+    rects = torch.from_numpy(dest_rects(rng, len(pool))).to(dev)
+    card = torch.tensor(CARD_DEST, dtype=torch.float32, device=dev)
+    for n in PERSP_COUNTS:
+        for name, dst in (("shared", card), ("per-stream", rects[:n])):
+            src = pool[:n]
+            got = persp_qr.eigen_persp_transform_batched(src, dst)
+            want = persp_qr.persp_transform_reference(src, dst)
+            torch.cuda.synchronize()
+            if not _bits_equal(got, want):
+                raise AssertionError(
+                    f"persp-QR kernel != plain version at {n} streams, "
+                    f"{name} dest, max abs difference "
+                    f"{_max_abs_err(got, want)}")
+    print(f"persp_qr == plain bit for bit at {PERSP_COUNTS} streams, "
+          f"degenerate sets (all zero, repeated, inf, NaN corner) first, "
+          f"shared and per-stream dest")
 
 
 def persp_phase(persp_qr, dev):
+    """Phase 7's check and times at N_STREAMS: the kernels line's keys."""
     phase("7 persp")
     rng = np.random.RandomState(1)
     src = torch.cat([_quads(GUIDE_LANDSCAPE, rng, N_STREAMS),
@@ -515,18 +656,39 @@ def persp_phase(persp_qr, dev):
         lambda: torch.linalg.solve_ex(a, b))
     solved = torch.linalg.solve_ex(a, b)[0][:, :, 0]
     lib_err = (solved - got[:N_STREAMS].reshape(-1, 9)[:, :8]).abs().max()
+    n_ops = persp_qr_ops()[0]
     n_bytes = src.numel() * 4 + dst.numel() * 4 + N_STREAMS * 9 * 4
-    bound_ms, bound_by = bound(n_bytes, N_STREAMS * persp_qr_flops())
+    bound_ms, bound_by = bound(n_bytes, N_STREAMS * n_ops)
     print(f"persp_qr at {N_STREAMS} streams (+1 all-zero set): equal bit for "
           f"bit, NaN included; kernel {ms:.5f} ms ({method}), plain "
           f"{plain_ms:.5f} ms ({plain_method}), torch.linalg.solve_ex "
           f"{library_ms:.5f} ms ({library_method}; max abs difference from "
           f"the kernel {lib_err.item():.3g}); bound {bound_ms:.7f} ms "
-          f"({bound_by}: {n_bytes} B, {persp_qr_flops()} f32 operations a "
-          f"stream)")
+          f"({bound_by}: {n_bytes} B, {n_ops} f32 operations a stream)")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
+
+
+def persp_floors(dev):
+    """Phase 7's floors beside the kernel's time, printed on their own
+    line: the solve's dependency chain (persp_qr_ops at the latencies of
+    op_cycles) at the SM clock, and an empty launch (a fill of one
+    element) timed as kernel_ms times the kernels."""
+    one = torch.zeros(1, device=dev)
+    empty_ms, _ = kernel_ms(lambda: one.fill_(0.0))
+    mhz = sm_clock_mhz()
+    cycles = op_cycles(dev)
+    _, n_chain, on_chain = persp_qr_ops()
+    chain_cycles = persp_qr_ops(cycles)[1]
+    chain_ms = chain_cycles / mhz / 1e3
+    print(f"persp_qr chain: {n_chain} dependent operations ({on_chain}); "
+          f"cycles an op on the card {cycles}; {chain_cycles:.0f} cycles, "
+          f"{chain_ms:.5f} ms at the SM clock of {mhz:.0f} MHz; empty "
+          f"launch (fill_ of one element) {empty_ms:.5f} ms")
+    return {"chain_floor_ms": chain_ms, "chain_cycles": chain_cycles,
+            "chain_ops": on_chain, "op_cycles": cycles, "sm_clock_mhz": mhz,
+            "empty_launch_ms": empty_ms}
 
 
 def tapped_pixels(port, m, frame_shape):
@@ -812,6 +974,8 @@ def main():
     pans = session_phase(port, kernels, params, fixture, dev)
     scan = serving_phase(port, kernels, params, fixture, pans, card, dev)
     measured["persp_qr"] = persp_phase(persp_qr, dev)
+    persp_cases(persp_qr, dev)
+    persp_floors(dev)
     measured["warp_gather"] = warp_phase(port, warp_gather, dev)
     camera = load_npz(fixture_path(port, "camera_session.npz"))
     camera_pans = camera_session_phase(port, kernels, params, camera, dev)

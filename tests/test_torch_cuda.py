@@ -23,6 +23,7 @@ from cardio_dmz_tpu_torch.parallel import (
 from cardio_dmz_tpu_torch.scan import (
     best_n_hseg, best_n_vseg, scan_card_image)
 from cardio_dmz_tpu_torch.scan.frame import pan_strip
+from chip_smoke import dest_rects
 from torch_parity import cuda_device  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -88,18 +89,25 @@ def test_kernel_matches_plain(cuda_device, n_streams, kind):  # noqa: F811
         strips.cpu(), offsets.cpu()))
 
 
-@pytest.mark.parametrize("n_streams", [1, 256])
-def test_persp_kernel_matches_plain(cuda_device, n_streams):  # noqa: F811
+@pytest.mark.parametrize("dest", ["shared", "per_stream"])
+@pytest.mark.parametrize("n_streams", [1, 3, 255, 256, 257])
+def test_persp_kernel_matches_plain(cuda_device, n_streams,  # noqa: F811
+                                    dest):
     """Bit for bit against the plain version on the card, NaN and inf
     included: the quads, then degenerate sets (all zero, a repeated
-    corner, an inf and a NaN corner)."""
+    corner, an inf and a NaN corner), with the card's destination for
+    every stream or a rectangle a stream. With the degenerate sets the
+    kernel sees 5, 7, 259, 260 and 261 streams: each leaves the last
+    block (eight streams, two a warp) part full."""
     quads = _quads("landscape", n_streams, n_streams)
     rep = quads[0].clone()
     rep[1] = rep[0]
     inf, nan = quads[0].clone(), quads[0].clone()
     inf[3, 0], nan[0, 1] = float("inf"), float("nan")
     src = torch.cat([quads, torch.stack([torch.zeros(4, 2), rep, inf, nan])])
-    src, dst = src.to(cuda_device), CARD_DEST.to(cuda_device)
+    dst = CARD_DEST if dest == "shared" else torch.from_numpy(
+        dest_rects(np.random.RandomState(n_streams), len(src)))
+    src, dst = src.to(cuda_device), dst.to(cuda_device)
     before = persp_qr.LAUNCHES
     got = persp_qr.eigen_persp_transform_batched(src, dst)
     torch.cuda.synchronize()

@@ -3,7 +3,8 @@ against the JAX package's, and the portrait camera preprocessing.
 
 * the persp-QR plain version against persp_host.persp_transform (what the
   JAX package runs off the TPU) and the JAX function, on 200 seeded
-  corner sets and degenerate ones, bit for bit, NaN included;
+  corner sets and degenerate ones, bit for bit, NaN included, and with a
+  destination set a stream against the JAX function vmapped over both;
 * the float64 coordinate maps against persp_host's real double and the
   JAX package's double-float form, exactly;
 * the exact warp's plain route (the maps, then the gather, from the
@@ -32,6 +33,7 @@ from cardio_dmz_tpu_torch.constants import (
 from cardio_dmz_tpu_torch.ops import persp as ppersp
 from cardio_dmz_tpu_torch.ops import warp as pwarp
 from cardio_dmz_tpu_torch.ops.cuda import persp_qr, warp_gather
+from chip_smoke import dest_rects, persp_qr_ops
 from torch_parity import to_np
 
 OUT = (270, 428)
@@ -105,6 +107,61 @@ def test_persp_plain_matches_jax():
     want = np.asarray(jax.jit(jax.vmap(
         lambda s: jpersp.eigen_persp_transform(s, CARD_DEST)))(src))
     np.testing.assert_array_equal(_bits(_port_persp(src)), _bits(want))
+
+
+def test_persp_per_stream_dest_matches_jax():
+    """A destination set a stream, as the JAX package's batched form
+    takes it: the plain version, the wrapper's CPU route and
+    ops.eigen_persp_transform against jax.vmap of the JAX function with
+    both arguments batched, bit for bit."""
+    src, dst = _quads(ORIENTATION_LANDSCAPE_RIGHT, 6, 5), dest_rects(
+        np.random.RandomState(5), 6)
+    assert len({d.tobytes() for d in dst}) == 6
+    want = np.asarray(jax.jit(jax.vmap(jpersp.eigen_persp_transform))(
+        src, dst))
+    assert np.isfinite(want).all()
+    t_src, t_dst = torch.from_numpy(src), torch.from_numpy(dst)
+    for got in (persp_qr.persp_transform_reference(t_src, t_dst),
+                persp_qr.eigen_persp_transform_batched(t_src, t_dst),
+                ppersp.eigen_persp_transform(t_src, t_dst)):
+        np.testing.assert_array_equal(_bits(to_np(got)), _bits(want))
+    # a shared set is every stream's: equal to that set repeated
+    shared = persp_qr.eigen_persp_transform_batched(t_src, t_dst[2])
+    np.testing.assert_array_equal(_bits(to_np(shared)), _bits(to_np(
+        persp_qr.eigen_persp_transform_batched(
+            t_src, t_dst[2].expand(6, 4, 2).contiguous()))))
+
+
+def test_persp_per_stream_dest_checks():
+    src = torch.from_numpy(_quads(ORIENTATION_LANDSCAPE_RIGHT, 3, 4))
+    dst = torch.from_numpy(dest_rects(np.random.RandomState(4), 3))
+    assert persp_qr.eigen_persp_transform_batched(src, dst).shape == (3, 3, 3)
+    for bad in (dst[:, :3], dst[:2], torch.cat([dst, dst[:1]]), dst[None]):
+        with pytest.raises(ValueError):
+            persp_qr.eigen_persp_transform_batched(src, bad.contiguous())
+    with pytest.raises(TypeError):
+        persp_qr.eigen_persp_transform_batched(src, dst.double())
+
+
+def test_persp_qr_ops_counts_the_solve():
+    """chip_smoke.persp_qr_ops, the model behind persp QR's bound and
+    chain floor, against a closed count of the solve's f32 operations:
+    the system's 16 products, each Householder step's norm, beta, ess,
+    tau and update, Q^T b, and the back-substitution."""
+    n, ops = 8, 16
+    for k in range(n):
+        nt = n - 1 - k
+        if nt:
+            ops += 2 * nt - 1 + 3 + 1 + nt + 2   # tsq, beta, c0-beta, ess, tau
+            ops += nt * 2 * nt + 2 * nt + nt * (1 + 2 * nt)   # the update
+        ops += 2 if nt == 0 else 2 * nt + 2 + 3 * nt      # Q^T b
+    ops += sum(1 + 2 * j for j in range(n))       # back-substitution
+    n_ops, chain, on_chain = persp_qr_ops()
+    assert n_ops == ops == 999
+    assert chain == sum(on_chain.values()) == 120
+    assert on_chain["div"] == 15 and on_chain["sqrt"] == 7
+    weighted = persp_qr_ops({"add": 1, "mul": 1, "div": 10, "sqrt": 10})[1]
+    assert weighted == 120 + 9 * 22
 
 
 def test_persp_wrapper_cpu_route_and_checks():

@@ -10,7 +10,8 @@ a fresh process imports cardio_dmz_tpu_torch from ROOT, builds ROOT's
 kernels and measures, with chip_smoke.py's phases:
 - each kernel alone (device time, chip_smoke.kernel_ms): digit prep on
   noise, real and all-equal strips (phase 3), persp QR beside
-  torch.linalg.solve_ex (phase 7), the exact warp's public entry
+  torch.linalg.solve_ex, its chain floor and an empty launch (phase 7),
+  the exact warp's public entry
   ops.warp_perspective_exact (coordinate maps included, wherever ROOT
   computes them), ROOT's warp kernel against its plain version (phase 8)
   where ROOT has the fused kernel, and its gather from precomputed maps
@@ -98,6 +99,7 @@ def measure(root):
                                              dev),
            "digit_prep": cs.kernel_phase(port, digit_prep, fixture, dev),
            "persp_qr": cs.persp_phase(persp_qr, dev),
+           "persp_floors": cs.persp_floors(dev),
            "warp": warp_entry(cs, port, warp_gather, dev)}
     if hasattr(warp_gather, "warp_perspective_reference"):
         out["warp"]["kernel"] = cs.warp_phase(port, warp_gather, dev)
