@@ -8,16 +8,19 @@ numpy, never jax and never cardio_dmz_tpu; it reads the model weights
 from cardio_dmz_tpu/models/params/ by path.
 
 What exists, batched over streams (parallel/streams.py):
-* the PAN-only serving path on rectified cards: vseg -> hseg -> digit
-  prep (CUDA kernel) + 3-model conv ensemble -> frame gates -> session
-  EWMA and Luhn/BIN acceptance (batched_scanner_step);
-* the camera path in front of it: edge detection on 12 bands -> the
+* the serving path on rectified cards: vseg -> hseg -> digit prep (CUDA
+  kernel) + 3-model conv ensemble -> frame gates -> session EWMA and
+  Luhn/BIN acceptance (batched_scanner_step);
+* with scan_expiry, the expiry read beside it: scharr band -> stripes ->
+  char groups -> regrid -> trim -> slash anchoring -> expiry conv ->
+  cross-frame slot table -> date (scan/expiry_device.py);
+* the camera path in front of either: edge detection on 12 bands -> the
   exact Eigen-QR homography (CUDA kernel) -> the exact cvWarpPerspective
-  warp (CUDA kernel) -> the PAN scan (batched_camera_step).
+  warp (CUDA kernel) -> the scan (batched_camera_step).
 """
 
 from . import (  # noqa: F401
-    api, constants, models, ops, parallel, scan, session, utils)
+    api, config, constants, models, ops, parallel, scan, session, utils)
 from .models import load_all_params  # noqa: F401
 from .parallel import (  # noqa: F401
     batched_camera_step, batched_scanner_step, init_stream_states)

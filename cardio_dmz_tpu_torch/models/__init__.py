@@ -1,2 +1,3 @@
-from .zoo import Mlp, PanConv, pan_digit_scores  # noqa: F401
+from .zoo import (  # noqa: F401
+    ExpiryConv, Mlp, PanConv, SlashMlp, pan_digit_scores)
 from .weights import load_all_params, load_np, params_from_numpy  # noqa: F401

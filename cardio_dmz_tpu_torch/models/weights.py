@@ -10,17 +10,25 @@ import os
 import numpy as np
 import torch
 
-from .zoo import Mlp, PanConv
+from .zoo import ExpiryConv, Mlp, PanConv, SlashMlp
 
 PARAM_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
         __file__)))), "cardio_dmz_tpu", "models", "params")
 
-# The models the PAN-only scan path runs.
-MODEL_NAMES = ("vseg_mlp", "pan_conv_a", "pan_conv_b", "pan_conv_c")
-
 _MLP_KEYS = ("hidden_w", "hidden_b", "logistic_w", "logistic_b")
-_PAN_KEYS = ("conv_w", "conv_b") + _MLP_KEYS
+# model name -> (module, its constructor's arrays in order)
+_MODELS = {
+    "vseg_mlp": (Mlp, _MLP_KEYS),
+    "slash_mlp": (SlashMlp, _MLP_KEYS),
+    "pan_conv_a": (PanConv, ("conv_w", "conv_b") + _MLP_KEYS),
+    "pan_conv_b": (PanConv, ("conv_w", "conv_b") + _MLP_KEYS),
+    "pan_conv_c": (PanConv, ("conv_w", "conv_b") + _MLP_KEYS),
+    "expiry_conv": (ExpiryConv, ("conv1_w", "conv1_b", "conv2_w", "conv2_b")
+                    + _MLP_KEYS),
+}
+# The models of the scan: the PAN path's, the slash MLP and the expiry conv.
+MODEL_NAMES = tuple(_MODELS)
 
 
 def load_np(name, include_test_vectors=False):
@@ -36,15 +44,13 @@ def params_from_numpy(np_params, device):
 
     Takes the JAX package's parameters as numpy arrays, keyed like its
     load_all_params(), so that both packages compute from the same
-    weights. Names outside MODEL_NAMES are not used by this path and are
-    skipped."""
+    weights."""
     out = {}
-    for name in MODEL_NAMES:
-        arrays = np_params[name]
-        keys = _MLP_KEYS if name == "vseg_mlp" else _PAN_KEYS
-        tensors = [torch.tensor(np.asarray(arrays[k]), dtype=torch.float32,
-                                device=device) for k in keys]
-        out[name] = (Mlp if name == "vseg_mlp" else PanConv)(*tensors)
+    for name, (module, keys) in _MODELS.items():
+        tensors = [torch.tensor(np.asarray(np_params[name][k]),
+                                dtype=torch.float32, device=device)
+                   for k in keys]
+        out[name] = module(*tensors)
     return out
 
 

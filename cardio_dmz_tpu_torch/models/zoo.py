@@ -1,12 +1,16 @@
-"""The PAN-path models as PyTorch modules.
+"""The scan's models as PyTorch modules.
 
 Counterparts of the JAX package's models/zoo.py:
 
 * vseg strip MLP      204 -> 50 tanh -> 3 softmax       (`Mlp`)
+* slash MLP           176 -> 80 tanh -> 2 softmax       (`SlashMlp`)
 * PAN digit conv (x3) 27x19 -> 8@3x3 (truncated valid 24x15) -> 3x3 maxpool
                       -> +bias, tanh -> 320 -> 32 tanh -> 10 softmax
                                                         (`PanConv`)
 * the 3-model ensemble (r0 + r1 + r2 - max) / 2         (`pan_digit_scores`)
+* expiry digit conv   16x11 (mean-sub) -> 50@5x5 full -> 2x2 pool -> relu
+                      -> 40@5x5 valid (sum over maps) -> 2x3 pool -> relu
+                      -> 120 -> 176 relu -> 10 softmax  (`ExpiryConv`)
 
 Weights are buffers, not parameters: nothing on the serving path takes a
 gradient. The products go to torch.matmul, as the JAX package leaves them
@@ -35,7 +39,8 @@ def _tanh(x):
 
 
 class Mlp(nn.Module):
-    """Two-layer MLP: tanh hidden layer, softmax output (vseg 204->50->3)."""
+    """Two-layer MLP: tanh hidden layer, softmax output (vseg 204->50->3,
+    slash 176->80->2)."""
 
     def __init__(self, hidden_w, hidden_b, logistic_w, logistic_b):
         super().__init__()
@@ -49,6 +54,40 @@ class Mlp(nn.Module):
         h = _tanh(torch.matmul(x, self.hidden_w.T) + self.hidden_b)
         logits = torch.matmul(h, self.logistic_w.T) + self.logistic_b
         return torch.softmax(logits, dim=-1)
+
+
+class SlashMlp(Mlp):
+    """The slash MLP (is_slash, expiry_seg.cpp:29-54), with its first layer
+    as the expiry segmentation applies it to scharr bands: `band_w` is
+    hidden_w / 255 rounded to bfloat16 (held as float32), the rounding the
+    JAX package gives that product's weights. The quotient is taken here in
+    numpy: a CUDA tensor over a Python scalar multiplies by the reciprocal,
+    which can round the other way."""
+
+    def __init__(self, hidden_w, hidden_b, logistic_w, logistic_b):
+        super().__init__(hidden_w, hidden_b, logistic_w, logistic_b)
+        w = torch.from_numpy(hidden_w.cpu().numpy() / np.float32(255.0))
+        self.register_buffer(
+            "band_w", w.to(torch.bfloat16).to(torch.float32).to(
+                hidden_w.device), persistent=False)
+
+
+def _conv_as_matmul_tables(in_hw, out_hw, k, pad):
+    """(tap, mask) tables that fold a KxK correlation with the given
+    low-side padding into one matrix: M[p, q] = w_flat[tap[p, q]] *
+    mask[p, q], p the input pixel and q the output position, both
+    row-major; the conv is then x_flat @ M."""
+    ih, iw = in_hw
+    oh, ow = out_hw
+    r = np.arange(ih)[:, None, None, None]
+    c = np.arange(iw)[None, :, None, None]
+    i = np.arange(oh)[None, None, :, None]
+    j = np.arange(ow)[None, None, None, :]
+    ki, kj = r - i + pad[0], c - j + pad[1]
+    valid = (ki >= 0) & (ki < k) & (kj >= 0) & (kj < k)
+    tap = np.clip(ki, 0, k - 1) * k + np.clip(kj, 0, k - 1)
+    return (tap.reshape(ih * iw, oh * ow),
+            valid.reshape(ih * iw, oh * ow).astype(np.float32))
 
 
 def _pool_perm(out_hw, pool_hw):
@@ -68,14 +107,8 @@ def pan_conv_matrix(conv_w):
     truncated to 24x15, with the 3x3 pool windows' taps in the minor axis.
     conv_w: (8, 3, 3) numpy. The same matrix as the JAX package's
     _pan_conv_matmul."""
-    r = np.arange(27)[:, None, None, None]
-    c = np.arange(19)[None, :, None, None]
-    i = np.arange(24)[None, None, :, None]
-    j = np.arange(15)[None, None, None, :]
-    ki, kj = r - i, c - j
-    valid = ((ki >= 0) & (ki < 3) & (kj >= 0) & (kj < 3)).reshape(513, 360)
-    tap = (np.clip(ki, 0, 2) * 3 + np.clip(kj, 0, 2)).reshape(513, 360)
-    m = conv_w.reshape(8, 9)[:, tap] * valid.astype(np.float32)  # 8x513x360
+    tap, mask = _conv_as_matmul_tables((27, 19), (24, 15), 3, (0, 0))
+    m = conv_w.reshape(8, 9)[:, tap] * mask                    # 8x513x360
     m = m[:, :, _pool_perm((24, 15), (3, 3))]
     return np.ascontiguousarray(
         m.transpose(1, 0, 2).reshape(PAN_CELL_PIXELS, 8 * 360), np.float32)
@@ -114,6 +147,76 @@ class PanConv(nn.Module):
         h = _tanh(torch.matmul(flat, self.hidden_w.T) + self.hidden_b)
         logits = torch.matmul(h, self.logistic_w.T) + self.logistic_b
         return torch.softmax(logits, dim=-1).reshape(batch_shape + (10,))
+
+
+def expiry_conv_matrices(conv1_w, conv2_w):
+    """The two 5x5 convolutions of the expiry classifier as matrices, pool
+    windows' taps in the minor axis: (176, 50*10*7*4) for conv1 (full,
+    zero-padded, 16x11 -> 20x14, 2x2 pool) and (50*10*7, 40*3*6) for conv2
+    (valid over the 50 maps, 10x7 -> 6x3, 2x3 pool). conv1_w: (50, 5, 5),
+    conv2_w: (40, 50, 5, 5) numpy. The same matrices as the JAX package's
+    apply_expiry_conv_mm builds."""
+    tap, mask = _conv_as_matmul_tables((16, 11), (20, 14), 5, (4, 4))
+    m1 = conv1_w.reshape(50, 25)[:, tap] * mask                # 50x176x280
+    m1 = m1[:, :, _pool_perm((20, 14), (2, 2))]
+    m1 = m1.transpose(1, 0, 2).reshape(176, 50 * 280)
+    tap, mask = _conv_as_matmul_tables((10, 7), (6, 3), 5, (0, 0))
+    m2 = conv2_w.reshape(40, 50, 25)[:, :, tap] * mask         # 40x50x70x18
+    m2 = m2[:, :, :, _pool_perm((6, 3), (2, 3))]
+    m2 = m2.transpose(1, 2, 0, 3).reshape(50 * 70, 40 * 18)
+    return (np.ascontiguousarray(m1, np.float32),
+            np.ascontiguousarray(m2, np.float32))
+
+
+class ExpiryConv(nn.Module):
+    """Expiry digit classifier on (..., 16, 11) float cells in [0, 1]
+    (modelc_bf4dd6c8.cpp:12495-13505). Each conv is one matmul against a
+    folded buffer (`conv1_mm`, `conv2_mm`); each max pool is then a max over
+    the minor columns."""
+
+    def __init__(self, conv1_w, conv1_b, conv2_w, conv2_b, hidden_w,
+                 hidden_b, logistic_w, logistic_b):
+        super().__init__()
+        for name, value in (("conv1_w", conv1_w), ("conv1_b", conv1_b),
+                            ("conv2_w", conv2_w), ("conv2_b", conv2_b),
+                            ("hidden_w", hidden_w), ("hidden_b", hidden_b),
+                            ("logistic_w", logistic_w),
+                            ("logistic_b", logistic_b)):
+            self.register_buffer(name, value)
+        m1, m2 = expiry_conv_matrices(conv1_w.cpu().numpy(),
+                                      conv2_w.cpu().numpy())
+        self.register_buffer("conv1_mm", torch.from_numpy(m1).to(
+            conv1_w.device), persistent=False)
+        self.register_buffer("conv2_mm", torch.from_numpy(m2).to(
+            conv1_w.device), persistent=False)
+
+    def forward(self, img, return_intermediates=False):
+        """img: (..., 16, 11) -> (..., 10) probabilities; with
+        return_intermediates also conv1's (..., 50, 10, 7) and conv2's
+        (..., 40, 3) pooled activations and the (..., 176) hidden layer."""
+        if img.shape[-2:] != (16, 11):
+            raise ValueError(
+                f"expiry digit cell must be (..., 16, 11) (H, W); got "
+                f"{tuple(img.shape)}")
+        batch_shape = img.shape[:-2]
+        x = img.reshape(-1, 176)
+        x = x - x.mean(dim=-1, keepdim=True)
+        n = x.shape[0]
+        c1 = torch.matmul(x, self.conv1_mm)                  # (N, 14000)
+        p1 = c1.reshape(n, 50, 10, 7, 4).amax(-1)
+        a1 = torch.relu(p1 + self.conv1_b[None, :, None, None])
+        c2 = torch.matmul(a1.reshape(n, 3500), self.conv2_mm)   # (N, 720)
+        p2 = c2.reshape(n, 40, 3, 6).amax(-1)
+        a2 = torch.relu(p2 + self.conv2_b[None, :, None])
+        flat = a2.reshape(n, 120)        # map-major: Eigen's 40x3 row-major
+        h = torch.relu(torch.matmul(flat, self.hidden_w.T) + self.hidden_b)
+        logits = torch.matmul(h, self.logistic_w.T) + self.logistic_b
+        probs = torch.softmax(logits, dim=-1).reshape(batch_shape + (10,))
+        if return_intermediates:
+            return (probs, a1.reshape(batch_shape + (50, 10, 7)),
+                    a2.reshape(batch_shape + (40, 3)),
+                    h.reshape(batch_shape + (176,)))
+        return probs
 
 
 def pan_digit_scores(model_a, model_b, model_c, img):

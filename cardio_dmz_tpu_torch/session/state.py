@@ -1,7 +1,7 @@
 """Cross-frame scanner session state machine (scan/scan.cpp), stream-major.
 
-Counterpart of the JAX package's session/state.py for the PAN-only path
-and the camera step in front of it. Every field of ScannerState carries a
+Counterpart of the JAX package's session/state.py, with the camera step
+in front of it. Every field of ScannerState carries a
 leading stream axis S, and every function steps all streams at once; a
 fold over time is a Python loop.
 
@@ -12,10 +12,10 @@ Semantics mirrored from the C++:
   hypotheses (scan.cpp:99-111), per-digit stability max/sum >= 0.7
   (scan.cpp:128-147), BIN-prefix and Luhn validation (scan.cpp:149-160)
 * once complete, the result latches (scan.cpp:95-97)
-
-PAN-only: the in-graph expiry read is the next slice of the port, so a
-session completes as soon as its number is accepted, and the expiry
-fields of the state keep their initial values.
+* expiry grace: the reference waits about 1 s of wall time after the PAN
+  completes for the date to resolve (scan.cpp:163-193). The step counts
+  frames instead, as the JAX package does: EXPIRY_GRACE_FRAMES = 30, about
+  1 s at the camera's 30 frames a second.
 """
 
 import typing
@@ -29,10 +29,18 @@ from ..constants import (
     PAN_DECAY_FACTOR,
     PAN_MIN_STABILITY,
 )
-from ..scan.expiry_device import ExpiryState, expiry_state_init
+from ..scan.expiry_device import (
+    ExpiryState,
+    aggregate_windows,
+    categorize_windows,
+    expiry_state_init,
+    extract_expiry,
+)
 from ..scan.frame import FrameResult, scan_card_image, telemetry_zeros
 from ..utils.olm import card_type_valid, luhn_checksum
 from .analytics import ScanAnalytics, analytics_init, analytics_record_frame
+
+EXPIRY_GRACE_FRAMES = 30  # ~1 s at 30 fps (scan.cpp:14,175)
 
 
 class ScannerState(typing.NamedTuple):
@@ -52,7 +60,7 @@ class ScannerState(typing.NamedTuple):
     completed_digits: torch.Tensor  # (S, 16) int32
     completed_n: torch.Tensor       # (S,) int32
     frames_since_complete: torch.Tensor  # (S,) int32
-    # expiry (filled by the in-graph expiry read, not yet ported)
+    # expiry (scan/expiry_device.py)
     scan_expiry: torch.Tensor       # (S,) bool
     expiry_month: torch.Tensor      # (S,) int32
     expiry_year: torch.Tensor       # (S,) int32
@@ -144,8 +152,9 @@ def _accumulate(state: ScannerState, frame: FrameResult) -> ScannerState:
     )
 
 
-def scanner_add_frame(params, state: ScannerState, y, telemetry=None,
-                      frame_gate=None):
+def scanner_add_frame(params, state: ScannerState, y, scan_expiry=False,
+                      telemetry=None, frame_gate=None,
+                      allow_past_dates=False, config=None):
     """scanner_add_frame_with_expiry (scan.cpp:41-86): run the frame
     pipeline and fold the result into every stream's session.
 
@@ -153,10 +162,19 @@ def scanner_add_frame(params, state: ScannerState, y, telemetry=None,
     metadata, frame.h:15-27). frame_gate: optional (S,) bool, the camera
     path's "card was found": where it is False the frame is unusable and
     goes unrecorded, as the reference's host app never calls
-    scanner_add_frame for a frame whose detection failed.
+    scanner_add_frame for a frame whose detection failed. config: optional
+    ScanConfig for the frame's gates.
     Returns (new_state, FrameResult)."""
     still_need_number = ~state.number_complete
-    frame = scan_card_image(params, y, telemetry=telemetry)
+    expiry_gate = True
+    if scan_expiry:
+        # scan.cpp:44: the expiry seg runs only while the date is unresolved
+        expiry_gate = (state.expiry_month == 0) | (state.expiry_year == 0)
+        if frame_gate is not None:
+            expiry_gate = expiry_gate & frame_gate
+    frame = scan_card_image(params, y, scan_expiry=scan_expiry,
+                            expiry_gate=expiry_gate, telemetry=telemetry,
+                            config=config)
     record = ~frame.upside_down
     if frame_gate is not None:
         frame = frame._replace(usable=frame.usable & frame_gate)
@@ -165,8 +183,35 @@ def scanner_add_frame(params, state: ScannerState, y, telemetry=None,
         state.analytics, frame, record))
     fold = frame.usable & ~frame.upside_down & still_need_number
     state = _select(fold, _accumulate(state, frame), state)
-    state = state._replace(frames_since_complete=torch.where(
-        state.number_complete, state.frames_since_complete + 1, 0))
+
+    if scan_expiry:
+        # scan.cpp:62-66: categorize and aggregate the frame's groups
+        windows = frame.expiry_groups
+        scores = categorize_windows(params["expiry_conv"], y, windows)
+        # expiry_extract is a no-op when segmentation found nothing
+        # (expiry_categorize.cpp:454-456); windows.valid already holds the
+        # vseg, room and still-needed gates. The session also drops an
+        # unusable frame (scan.cpp:57), and `usable` there holds the
+        # number-score check only while the number is being collected
+        # (frame.cpp:49-69).
+        session_ok = frame.usable | state.number_complete
+        any_new = windows.valid.any(dim=1) & session_ok
+        expiry_state = _select(
+            any_new, aggregate_windows(state.expiry, windows, scores),
+            state.expiry)
+        month, year = extract_expiry(
+            expiry_state, state.expiry_month, state.expiry_year,
+            state.now_year, state.now_month,
+            allow_past_dates=allow_past_dates)
+        state = state._replace(
+            expiry=expiry_state,
+            expiry_month=torch.where(any_new, month, state.expiry_month),
+            expiry_year=torch.where(any_new, year, state.expiry_year))
+
+    state = state._replace(
+        scan_expiry=state.scan_expiry | scan_expiry,
+        frames_since_complete=torch.where(
+            state.number_complete, state.frames_since_complete + 1, 0))
     return state, frame
 
 
@@ -195,10 +240,20 @@ def _try_complete(state: ScannerState):
     return accept, digits, n
 
 
-def scanner_result(state: ScannerState):
+def scanner_result(state: ScannerState, scan_forever=False):
     """scanner_result (scan.cpp:88-194). Completion latches into the
-    state, so callers thread the returned state.
+    state, so callers thread the returned state. A session that scans the
+    expiry completes once it has the number and either a date or more than
+    EXPIRY_GRACE_FRAMES frames since the number. scan_forever mirrors
+    SCAN_FOREVER (scan.cpp:13,91-93): never complete.
     Returns (new_state, ScannerResult)."""
+    if scan_forever:
+        return state, ScannerResult(
+            complete=torch.zeros_like(state.number_complete),
+            n_numbers=torch.zeros_like(state.completed_n),
+            predictions=torch.zeros_like(state.completed_digits),
+            expiry_month=torch.zeros_like(state.expiry_month),
+            expiry_year=torch.zeros_like(state.expiry_year))
     accept, digits, n = _try_complete(state)
     newly = accept & ~state.number_complete
     state = state._replace(
@@ -207,27 +262,43 @@ def scanner_result(state: ScannerState):
                                      state.completed_digits),
         completed_n=torch.where(newly, n, state.completed_n),
     )
+    expiry_found = (state.expiry_month > 0) & (state.expiry_year > 0)
+    grace_over = state.frames_since_complete > EXPIRY_GRACE_FRAMES
+    expiry_done = ~state.scan_expiry | expiry_found | grace_over
+    complete = state.number_complete & expiry_done
+    with_date = complete & state.scan_expiry
     result = ScannerResult(
-        complete=state.number_complete,
+        complete=complete,
         n_numbers=state.completed_n,
         predictions=state.completed_digits,
-        expiry_month=torch.zeros_like(state.expiry_month),
-        expiry_year=torch.zeros_like(state.expiry_year),
+        expiry_month=torch.where(with_date, state.expiry_month, 0),
+        expiry_year=torch.where(with_date, state.expiry_year, 0),
     )
     return state, result
 
 
-def scanner_step(params, state: ScannerState, y, telemetry=None,
-                 frame_gate=None):
-    """One frame for every stream: add_frame + result.
+def scanner_step(params, state: ScannerState, y, scan_expiry=False,
+                 config=None, telemetry=None, frame_gate=None):
+    """One frame for every stream: add_frame + result. config (a
+    ScanConfig) overrides scan_expiry and supplies scan_forever and
+    expiry_allow_past_dates.
     Returns (state, (FrameResult, ScannerResult))."""
-    state, frame = scanner_add_frame(params, state, y, telemetry=telemetry,
-                                     frame_gate=frame_gate)
-    state, result = scanner_result(state)
+    scan_forever = allow_past_dates = False
+    if config is not None:
+        scan_expiry = config.scan_expiry
+        scan_forever = config.scan_forever
+        allow_past_dates = config.expiry_allow_past_dates
+    state, frame = scanner_add_frame(params, state, y, scan_expiry,
+                                     telemetry=telemetry,
+                                     frame_gate=frame_gate,
+                                     allow_past_dates=allow_past_dates,
+                                     config=config)
+    state, result = scanner_result(state, scan_forever=scan_forever)
     return state, (frame, result)
 
 
 def camera_scanner_step(params, state: ScannerState, y, cb, cr,
+                        scan_expiry=False, config=None,
                         orientation=ORIENTATION_LANDSCAPE_RIGHT):
     """Camera frame -> digits for every stream: the reference's
     per-preview-frame host loop (dmz_detect_edges + dmz_transform_card,
@@ -241,20 +312,20 @@ def camera_scanner_step(params, state: ScannerState, y, cb, cr,
     found, card = preprocess_frame(y, cb, cr, orientation)
     telemetry = telemetry_zeros(y.shape[0], y.device)._replace(
         focus_score=focus_score(y), brightness_score=brightness_score(y))
-    state, (frame, result) = scanner_step(params, state, card,
-                                          telemetry=telemetry,
+    state, (frame, result) = scanner_step(params, state, card, scan_expiry,
+                                          config, telemetry=telemetry,
                                           frame_gate=found)
     return state, (found, frame, result)
 
 
-def scan_frames(params, frames, now):
+def scan_frames(params, frames, now, scan_expiry=False):
     """Fold (S, T, 270, 428) frames through S fresh sessions, one step per
     frame. Returns (final_state, (FrameResults, ScannerResults)), the
     per-frame results stacked as (S, T, ...)."""
     state = scanner_reset(now, frames.shape[0], frames.device)
     per_frame = []
     for t in range(frames.shape[1]):
-        state, out = scanner_step(params, state, frames[:, t])
+        state, out = scanner_step(params, state, frames[:, t], scan_expiry)
         per_frame.append(out)
     frame_results, results = zip(*per_frame)
     return state, (_stack(list(frame_results), 1), _stack(list(results), 1))

@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's two serving paths once on one NVIDIA card: the
-PAN-only step on rectified cards and the camera step in front of it.
+"""Drive the PyTorch port's serving paths once on one NVIDIA card: the
+PAN-only step on rectified cards, the camera step in front of it, and both
+with the in-graph expiry read (the full steps).
 
     python3 chip_smoke.py            (from the repo root, on a CUDA machine)
 
@@ -48,6 +49,28 @@ without printing its last line:
             step ms, peak memory, a per-stage split (detect / homography /
             warp / scan), a check that no card-shaped float64 or int32
             tensor is made, and a profile of one step
+11. expiry  the expiry conv's golden intermediates at 1e-5 (phase 4 holds
+            every model's golden output, the slash MLP's and the expiry
+            conv's included); the recorded full sessions
+            (data/expiry_session.npz, written from the JAX package by
+            tests/torch_fixture.py: two dated cards and an undated one)
+            through scan_frames(scan_expiry=True), and the same cards on
+            the guide rect of camera previews through
+            batched_camera_step(scan_expiry=True): windows, char rects,
+            slot tables, months and years equal the JAX package's, window
+            and slot scores within 1e-5; the undated card has its number
+            and completes only through the grace rule (checked on its
+            state); digit prep launched
+12. full serving
+            batched_scanner_step(scan_expiry=True) at 256 streams (the
+            fixture's dated cards tiled): 3 warm-up and 20 timed steps,
+            every stream completes with its PAN and its date; frames/s,
+            step ms, device ms and operations a step (torch.profiler),
+            peak memory, and a split: expiry seg / categorize / aggregate
+            and extract / the PAN-only step
+13. full camera serving
+            the same for batched_camera_step(scan_expiry=True) at 256
+            streams of previews; all three kernels launched once a step
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times from
 kernel_ms: many calls captured in one CUDA graph and replayed, so the
@@ -55,13 +78,13 @@ wrappers' Python is not inside them. Stage splits and step times do include
 the host's launches (event_ms, host clock).
 
 Each serving phase sets every kernel's launch count to 0 just before its
-run and reads them just after. The line before the last is a JSON object
-with, for each kernel, its launches on the camera serving path (and on the
-PAN-only one), its largest difference from the plain version, its time,
-the plain version's and one PyTorch call's where one computes the same
-function, and its bound: the larger of the bytes it must move over the
-card's memory rate and its operations over the card's peak rate. The last
-line is {"ok": true, "device": {...}}. Needs no network and no JAX; builds
+run and reads them just after, and prints them on a line of its own. The
+line before the last is a JSON object with, for each kernel, its launches
+on the camera serving path (and on the PAN-only one), its largest
+difference from the plain version, its time, the plain version's and one
+PyTorch call's where one computes the same function, and its bound: the
+larger of the bytes it must move over the card's memory rate and its
+operations over the card's peak rate. The last line is {"ok": true, "device": {...}}. Needs no network and no JAX; builds
 into cardio_dmz_tpu_torch/_build/.
 """
 
@@ -380,6 +403,26 @@ def session_phase(port, kernels, params, fixture, dev):
     return pans
 
 
+def timed_steps(kernels, step, states, inputs):
+    """The loop of the serving phases: every kernel's launch count set to
+    0, WARMUP steps, then STEPS steps timed on the host clock up to a
+    synchronize; step(states, inputs[i % len(inputs)]) -> (states,
+    outputs). Returns (states, the last outputs, seconds, launches, peak
+    device memory in MiB, the phase's inputs included)."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    for i in range(WARMUP):
+        states, _ = step(states, inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(WARMUP, WARMUP + STEPS):
+        states, out = step(states, inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    return (states, out, elapsed, read_launches(kernels),
+            torch.cuda.max_memory_allocated() / 2**20)
+
+
 def serving_phase(port, kernels, params, fixture, pans, card, dev):
     phase("6 serving")
     n_src = fixture["frames"].shape[0]
@@ -389,20 +432,9 @@ def serving_phase(port, kernels, params, fixture, pans, card, dev):
              for t in range(tiled.shape[1])]
     now = tuple(fixture["now"].tolist())
 
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches(kernels)
-    states = port.init_stream_states(N_STREAMS, dev, now)
-    for i in range(WARMUP):
-        states, _ = port.batched_scanner_step(params, states,
-                                              steps[i % len(steps)])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(WARMUP, WARMUP + STEPS):
-        states, (_, results) = port.batched_scanner_step(
-            params, states, steps[i % len(steps)])
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = read_launches(kernels)
+    states, (_, results), elapsed, launches, peak_mib = timed_steps(
+        kernels, lambda st, fr: port.batched_scanner_step(params, st, fr),
+        port.init_stream_states(N_STREAMS, dev, now), steps)
 
     want = [pans[s % n_src] for s in range(N_STREAMS)]
     got = [_pan(d[:int(n)]) for d, n in zip(states.completed_digits.cpu(),
@@ -415,7 +447,6 @@ def serving_phase(port, kernels, params, fixture, pans, card, dev):
         raise AssertionError(f"digit-prep launched {launches} times in "
                              f"{WARMUP + STEPS} steps")
     step_ms = 1000.0 * elapsed / STEPS
-    peak_mib = torch.cuda.max_memory_allocated() / 2**20
     print(f"scan_pipeline_throughput {N_STREAMS * STEPS / elapsed:.1f} "
           f"frames/s; step {step_ms:.3f} ms at {N_STREAMS} streams, "
           f"PAN-only, {STEPS} steps after {WARMUP} warm-up; all streams "
@@ -858,8 +889,9 @@ def card_maps(fn):
 
 def profile_step(fn):
     """One call of fn under torch.profiler: device ms in all, the number of
-    device operations, and those whose kernel works on float64 (name
-    holds "double")."""
+    device operations, those whose kernel works on float64 (name holds
+    "double"), and the five kernels with the most device time as (name,
+    ms, launches)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -868,7 +900,10 @@ def profile_step(fn):
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     f64 = [e for e in rows if "double" in e.key]
+    rows.sort(key=lambda e: -e.self_device_time_total)
     return {"device_ms": sum(e.self_device_time_total for e in rows) / 1e3,
+            "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count)
+                    for e in rows[:5]],
             "device_ops": sum(e.count for e in rows),
             "f64_ops": sum(e.count for e in f64),
             "f64_ms": sum(e.self_device_time_total for e in f64) / 1e3}
@@ -883,20 +918,10 @@ def camera_serving_phase(port, kernels, params, fixture, pans, card, dev):
         for t in range(n_frames)]
     now = tuple(fixture["now"].tolist())
 
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches(kernels)
-    states = port.init_stream_states(N_STREAMS, dev, now)
-    for i in range(WARMUP):
-        states, _ = port.batched_camera_step(params, states,
-                                             *steps[i % n_frames])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(WARMUP, WARMUP + STEPS):
-        states, (found, _, results) = port.batched_camera_step(
-            params, states, *steps[i % n_frames])
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = read_launches(kernels)
+    states, (found, _, results), elapsed, launches, peak_mib = timed_steps(
+        kernels,
+        lambda st, planes: port.batched_camera_step(params, st, *planes),
+        port.init_stream_states(N_STREAMS, dev, now), steps)
 
     want = [pans[s] for s in streams]
     got = [_pan(d[:int(n)]) for d, n in zip(states.completed_digits.cpu(),
@@ -909,7 +934,6 @@ def camera_serving_phase(port, kernels, params, fixture, pans, card, dev):
         raise AssertionError(f"want each kernel launched once a step in "
                              f"{WARMUP + STEPS} steps; got {launches}")
     step_ms = 1000.0 * elapsed / STEPS
-    peak_mib = torch.cuda.max_memory_allocated() / 2**20
     print(f"camera_pipeline_throughput {N_STREAMS * STEPS / elapsed:.1f} "
           f"frames/s; step {step_ms:.3f} ms at {N_STREAMS} streams of "
           f"480x640 Y + 240x320 Cb/Cr, PAN-only, exact warp, {STEPS} steps "
@@ -956,6 +980,288 @@ def camera_serving_phase(port, kernels, params, fixture, pans, card, dev):
             "profile": profile}
 
 
+def paste_previews(cards, bg=50):
+    """Cards (..., 270, 428) u8 on the landscape guide rect of 480x640 Y
+    previews with flat 128 half-size chroma, as tests/torch_fixture.py
+    places them: (y, cb, cr) numpy."""
+    y = np.full(cards.shape[:-2] + FRAME_SHAPE, bg, np.uint8)
+    (x0, y0), _, _, (x1, y1) = GUIDE_LANDSCAPE
+    y[..., y0:y1, x0:x1] = cards
+    cbcr = np.full(cards.shape[:-2] + (240, 320), 128, np.uint8)
+    return y, cbcr, cbcr.copy()
+
+
+def _compare_expiry_run(port, params, fixture, prefix, run, cards):
+    """One replayed session, a (state, FrameResult, ScannerResult) per
+    frame, against the fixture's arrays under `prefix`. cards: per frame
+    the (S, 270, 428) cards that were scanned, or None to leave the window
+    scores out. Returns the largest score difference."""
+    def per_frame(get):
+        return np.stack([get(r).cpu().numpy() for r in run], axis=1)
+
+    got = {f"window_{k}": per_frame(lambda r: getattr(r[1].expiry_groups, k))
+           for k in ("valid", "top", "left", "char_tops", "char_lefts")}
+    got.update({f"expiry_{k}": per_frame(lambda r: getattr(r[0].expiry, k))
+                for k in ("active", "top", "left", "scores", "recently_seen",
+                          "total_seen")})
+    got.update(
+        vseg_y_offset=per_frame(lambda r: r[1].vseg.y_offset),
+        usable=per_frame(lambda r: r[1].usable),
+        expiry_month=per_frame(lambda r: r[0].expiry_month),
+        expiry_year=per_frame(lambda r: r[0].expiry_year),
+        complete=per_frame(lambda r: r[2].complete),
+        result_month=per_frame(lambda r: r[2].expiry_month),
+        result_year=per_frame(lambda r: r[2].expiry_year))
+    final = run[-1][0]
+    got.update({k: getattr(final, k).cpu().numpy() for k in (
+        "frames_since_complete", "number_complete", "completed_digits",
+        "completed_n")})
+    if cards is not None:
+        got["window_scores"] = np.stack([
+            port.scan.expiry_device.categorize_windows(
+                params["expiry_conv"], c, r[1].expiry_groups).cpu().numpy()
+            for c, r in zip(cards, run)], axis=1)
+    err = 0.0
+    for key, value in got.items():
+        want = fixture[prefix + key]
+        if np.issubdtype(value.dtype, np.floating):
+            np.testing.assert_allclose(value, want, atol=SCORE_ATOL, rtol=0,
+                                       err_msg=prefix + key)
+            err = max(err, float(np.abs(value - want).max()))
+        elif not np.array_equal(value, want):
+            raise AssertionError(f"{prefix}{key} differs from the JAX "
+                                 f"package's:\n{value}\n{want}")
+    return err
+
+
+def _dates(months, years):
+    return [f"{int(m):02d}/{int(y)}" for m, y in zip(months, years)]
+
+
+def fixture_dates(fixture):
+    """The date each session of the expiry fixture ends with, "00/0" for
+    none."""
+    return _dates(fixture["expiry_month"][:, -1],
+                  fixture["expiry_year"][:, -1])
+
+
+def expiry_phase(port, kernels, params, fixture, dev):
+    phase("11 expiry")
+    golden = port.models.load_np("expiry_conv", include_test_vectors=True)
+    _, a1, a2, hidden = params["expiry_conv"](
+        torch.from_numpy(golden["test_input"]).to(dev),
+        return_intermediates=True)
+    for key, value in (("test_conv1_out", a1.reshape(50, 70)),
+                       ("test_conv2_out", a2), ("test_hidden_out", hidden)):
+        err = np.abs(value.cpu().numpy() - golden[key]).max()
+        if not err <= SCORE_ATOL:
+            raise AssertionError(f"expiry_conv {key}: max abs error {err}")
+        print(f"expiry_conv {key}: golden max abs error {err:.3g}")
+
+    now = tuple(fixture["now"].tolist())
+    n_streams, n_frames = fixture["frames"].shape[:2]
+    frames = torch.from_numpy(fixture["frames"]).to(dev)
+    reset_launches(kernels)
+    state = port.init_stream_states(n_streams, dev, now)
+    run = []
+    for t in range(n_frames):
+        state, (fr, res) = port.batched_scanner_step(
+            params, state, frames[:, t], scan_expiry=True)
+        run.append((state, fr, res))
+    final, (_, results) = port.scan_frames(params, frames, now,
+                                           scan_expiry=True)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    err = _compare_expiry_run(port, params, fixture, "", run,
+                              [frames[:, t] for t in range(n_frames)])
+    for a, b in ((final.expiry_month, state.expiry_month),
+                 (final.expiry_year, state.expiry_year),
+                 (results.complete[:, -1], run[-1][2].complete)):
+        if not torch.equal(a, b):
+            raise AssertionError("scan_frames and the stepped sessions "
+                                 "disagree")
+    if launches["digit_prep"] != 2 * n_frames:
+        raise AssertionError(f"want digit prep launched once a step; got "
+                             f"{launches}")
+
+    y, cb, cr = (torch.from_numpy(p).to(dev)
+                 for p in paste_previews(fixture["frames"]))
+    reset_launches(kernels)
+    cam_state = port.init_stream_states(n_streams, dev, now)
+    cam_run, found = [], []
+    for t in range(n_frames):
+        cam_state, (fnd, fr, res) = port.batched_camera_step(
+            params, cam_state, y[:, t], cb[:, t], cr[:, t], scan_expiry=True)
+        cam_run.append((cam_state, fr, res))
+        found.append(fnd.cpu().numpy())
+    torch.cuda.synchronize()
+    cam_launches = read_launches(kernels)
+    if not np.array_equal(np.stack(found, axis=1), fixture["camera_found"]):
+        raise AssertionError("camera found flags differ from the JAX "
+                             "package's")
+    cam_err = _compare_expiry_run(port, params, fixture, "camera_", cam_run,
+                                  None)
+    if any(n != n_frames for n in cam_launches.values()):
+        raise AssertionError(f"want each kernel launched once a camera "
+                             f"step; got {cam_launches}")
+
+    # the fixture's last stream has no expiry line: it holds its number,
+    # has no date, and completes only once the grace period is over
+    dates = _dates(state.expiry_month.cpu(), state.expiry_year.cpu())
+    complete = run[-1][2].complete.cpu().tolist()
+    if (dates != fixture_dates(fixture) or dates[-1] != "00/0"
+            or complete != [True] * (n_streams - 1) + [False]
+            or not state.number_complete.all()):
+        raise AssertionError(f"want every dated session complete and the "
+                             f"undated one waiting; got {dates} {complete}")
+    grace = port.session.state.EXPIRY_GRACE_FRAMES
+    for since, want in ((grace, False), (grace + 1, True)):
+        _, res = port.session.scanner_result(state._replace(
+            frames_since_complete=torch.full_like(
+                state.frames_since_complete, since)))
+        if bool(res.complete[-1]) != want or int(res.expiry_month[-1]):
+            raise AssertionError(
+                f"grace rule: {since} frames after the number the undated "
+                f"session reads complete={bool(res.complete[-1])}")
+    print(f"full sessions ({n_streams} streams x {n_frames} frames) read "
+          f"{dates} with the PANs {fixture_pans(fixture)}, through the "
+          f"scanner step and the camera step; windows, char rects, slot "
+          f"tables and dates equal the JAX package's; window and slot "
+          f"scores max abs error {max(err, cam_err):.3g}; the undated "
+          f"session completes after {grace + 1} frames of grace, not after "
+          f"{grace}; launches scan {launches}, camera {cam_launches}")
+    return dates
+
+
+def full_split(port, params, frames, states):
+    """The full step's stages alone at the serving shape, each a median of
+    10 event-timed calls, host launches included."""
+    expiry = port.scan.expiry_device
+    fr = port.scan.scan_card_image(params, frames, scan_expiry=True)
+    enabled = torch.ones_like(fr.usable)
+    windows = expiry.best_expiry_seg_device(
+        params["slash_mlp"], frames, fr.vseg.y_offset, enabled)
+    scores = expiry.categorize_windows(params["expiry_conv"], frames, windows)
+
+    def aggregate():
+        merged = expiry.aggregate_windows(states.expiry, windows, scores)
+        return expiry.extract_expiry(merged, states.expiry_month,
+                                     states.expiry_year, states.now_year,
+                                     states.now_month)
+
+    return {
+        "expiry seg": event_ms(lambda: expiry.best_expiry_seg_device(
+            params["slash_mlp"], frames, fr.vseg.y_offset, enabled), 10),
+        "expiry categorize": event_ms(lambda: expiry.categorize_windows(
+            params["expiry_conv"], frames, windows), 10),
+        "aggregate + extract": event_ms(aggregate, 10),
+        "PAN-only step": event_ms(lambda: port.batched_scanner_step(
+            params, states, frames), 10),
+        "full step": event_ms(lambda: port.batched_scanner_step(
+            params, states, frames, scan_expiry=True), 10),
+    }
+
+
+def _check_full(fixture, dates, streams, states, results, launches, want):
+    pans = fixture_pans(fixture)
+    got = [(_pan(d[:int(n)]), date) for d, n, date in zip(
+        states.completed_digits.cpu(), states.completed_n.cpu(),
+        _dates(results.expiry_month.cpu(), results.expiry_year.cpu()))]
+    expected = [(pans[s], dates[s]) for s in streams]
+    if not (results.complete.all() and got == expected):
+        raise AssertionError(
+            f"{int(results.complete.sum())}/{N_STREAMS} streams completed, "
+            f"{sum(g == w for g, w in zip(got, expected))} with the right "
+            f"PAN and date")
+    if launches != want:
+        raise AssertionError(f"want kernel launches {want} in "
+                             f"{WARMUP + STEPS} steps; got {launches}")
+
+
+def full_serving_phase(port, kernels, params, fixture, dates, card, dev):
+    phase("12 full serving")
+    n_dated = sum(d != "00/0" for d in dates)
+    streams = np.arange(N_STREAMS) % n_dated
+    n_frames = fixture["frames"].shape[1]
+    steps = [torch.from_numpy(np.ascontiguousarray(
+        fixture["frames"][streams, t])).to(dev) for t in range(n_frames)]
+    now = tuple(fixture["now"].tolist())
+
+    def step(states, frames):
+        return port.batched_scanner_step(params, states, frames,
+                                         scan_expiry=True)
+
+    states, (_, results), elapsed, launches, peak_mib = timed_steps(
+        kernels, step, port.init_stream_states(N_STREAMS, dev, now), steps)
+    _check_full(fixture, dates, streams, states, results, launches,
+                {"digit_prep": WARMUP + STEPS, "warp_gather": 0,
+                 "persp_qr": 0})
+    step_ms = 1000.0 * elapsed / STEPS
+    profile = profile_step(lambda: step(states, steps[0]))
+    print(f"full_scan_pipeline_throughput {N_STREAMS * STEPS / elapsed:.1f} "
+          f"frames/s; step {step_ms:.3f} ms at {N_STREAMS} streams, PAN + "
+          f"expiry, {STEPS} steps after {WARMUP} warm-up; all streams "
+          f"complete with PAN and date; {profile['device_ms']:.3f} ms of "
+          f"device time over {profile['device_ops']} device operations a "
+          f"step; peak memory {peak_mib:.1f} MiB; card {card}")
+    print("most device time: " + "; ".join(
+        f"{name} {ms:.3f} ms in {n}" for name, ms, n in profile["top"]))
+    split = full_split(port, params, steps[0], states)
+    print("full stage split, median ms of 10 event-timed calls: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()))
+    print(f"kernel launches on this path: {launches}")
+    return {"launches": launches, "step_ms": step_ms,
+            "frames_per_s": N_STREAMS * STEPS / elapsed,
+            "peak_mib": peak_mib, "split": split, "profile": profile}
+
+
+def full_camera_serving_phase(port, kernels, params, fixture, dates, card,
+                              dev):
+    phase("13 full camera serving")
+    n_dated = sum(d != "00/0" for d in dates)
+    streams = np.arange(N_STREAMS) % n_dated
+    n_frames = fixture["frames"].shape[1]
+    steps = [tuple(torch.from_numpy(p).to(dev) for p in paste_previews(
+        fixture["frames"][streams, t])) for t in range(n_frames)]
+    now = tuple(fixture["now"].tolist())
+
+    def step(states, planes, scan_expiry=True):
+        return port.batched_camera_step(params, states, *planes,
+                                        scan_expiry=scan_expiry)
+
+    states, (found, _, results), elapsed, launches, peak_mib = timed_steps(
+        kernels, step, port.init_stream_states(N_STREAMS, dev, now), steps)
+    if not found.all():
+        raise AssertionError(f"{int(found.sum())}/{N_STREAMS} cards found")
+    _check_full(fixture, dates, streams, states, results, launches,
+                {name: WARMUP + STEPS for name in kernels})
+    step_ms = 1000.0 * elapsed / STEPS
+    profile = profile_step(lambda: step(states, steps[0]))
+    print(f"full_camera_pipeline_throughput "
+          f"{N_STREAMS * STEPS / elapsed:.1f} frames/s; step {step_ms:.3f} "
+          f"ms at {N_STREAMS} streams of 480x640 Y + 240x320 Cb/Cr, PAN + "
+          f"expiry, exact warp, {STEPS} steps after {WARMUP} warm-up; all "
+          f"streams complete with PAN and date; "
+          f"{profile['device_ms']:.3f} ms of device time over "
+          f"{profile['device_ops']} device operations a step; peak memory "
+          f"{peak_mib:.1f} MiB; card {card}")
+    _, cards = port.api.preprocess_frame(*steps[0])
+    split = {
+        "camera PAN-only step": event_ms(
+            lambda: step(states, steps[0], scan_expiry=False), 10),
+        "full scan of the cards": event_ms(
+            lambda: port.batched_scanner_step(params, states, cards,
+                                              scan_expiry=True), 10),
+        "full camera step": event_ms(lambda: step(states, steps[0]), 10),
+    }
+    print("full camera stage split, median ms of 10 event-timed calls: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    print(f"kernel launches on this path: {launches}")
+    return {"launches": launches, "step_ms": step_ms,
+            "frames_per_s": N_STREAMS * STEPS / elapsed,
+            "peak_mib": peak_mib, "split": split, "profile": profile}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -984,6 +1290,11 @@ def main():
     if serving["card_maps"]:
         raise AssertionError(f"the camera step made card-shaped float64 or "
                              f"int32 tensors: {serving['card_maps']}")
+    expiry = load_npz(fixture_path(port, "expiry_session.npz"))
+    dates = expiry_phase(port, kernels, params, expiry, dev)
+    full_serving_phase(port, kernels, params, expiry, dates, card, dev)
+    full_camera_serving_phase(port, kernels, params, expiry, dates, card,
+                              dev)
 
     print(card)
     print(json.dumps({"kernels": [{

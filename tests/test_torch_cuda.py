@@ -1,6 +1,6 @@
 """The port on an NVIDIA card: each CUDA kernel (digit prep, persp QR, the
-exact warp) against its plain version, and the scan and camera paths on the
-card against the same paths on the CPU.
+exact warp) against its plain version, and the scan, camera and expiry
+paths on the card against the same paths on the CPU.
 
 These tests skip without a card. They import neither jax nor the JAX
 package, so they also run where only PyTorch is installed:
@@ -23,6 +23,7 @@ from cardio_dmz_tpu_torch.parallel import (
 from cardio_dmz_tpu_torch.scan import (
     best_n_hseg, best_n_vseg, scan_card_image)
 from cardio_dmz_tpu_torch.scan.frame import pan_strip
+from cardio_dmz_tpu_torch.session import scan_frames
 from chip_smoke import dest_rects
 from torch_parity import cuda_device  # noqa: F401
 
@@ -202,3 +203,57 @@ def test_scan_on_card_matches_cpu(cuda_device):  # noqa: F811
     assert torch.equal(card.usable.cpu(), cpu.usable)
     torch.testing.assert_close(card.scores.cpu(), cpu.scores, atol=1e-5,
                                rtol=0)
+
+
+def test_expiry_session_on_card_matches_cpu(cuda_device):  # noqa: F811
+    """The expiry fixture's sessions through scan_frames(scan_expiry=True)
+    on the card and on the CPU: windows, char rects, slot tables and dates
+    equal, slot scores within 1e-5."""
+    with np.load(os.path.join(DATA, "expiry_session.npz")) as f:
+        frames = torch.from_numpy(f["frames"])
+        now = tuple(f["now"].tolist())
+    state_c, (fr_c, res_c) = scan_frames(load_all_params("cpu"), frames, now,
+                                         scan_expiry=True)
+    state, (fr, res) = scan_frames(load_all_params(cuda_device),
+                                   frames.to(cuda_device), now,
+                                   scan_expiry=True)
+    for a, b in zip(fr.expiry_groups, fr_c.expiry_groups):
+        assert torch.equal(a.cpu(), b)
+    for name in ("active", "top", "left", "recently_seen", "total_seen"):
+        assert torch.equal(getattr(state.expiry, name).cpu(),
+                           getattr(state_c.expiry, name)), name
+    torch.testing.assert_close(state.expiry.scores.cpu(),
+                               state_c.expiry.scores, atol=1e-5, rtol=0)
+    for a, b in ((res.complete, res_c.complete),
+                 (res.expiry_month, res_c.expiry_month),
+                 (res.expiry_year, res_c.expiry_year),
+                 (state.completed_digits, state_c.completed_digits)):
+        assert torch.equal(a.cpu(), b)
+    assert res.expiry_month[:, -1].tolist() == [8, 11, 0]
+
+
+@pytest.mark.parametrize("stage", ["nonoverlap", "regrid", "trim"])
+def test_expiry_stage_on_card_matches_cpu(cuda_device, stage):  # noqa: F811
+    """The integer stages on seeded random inputs, card against CPU."""
+    from cardio_dmz_tpu_torch.scan import expiry_device as tx
+    rng = np.random.RandomState(11)
+    if stage == "nonoverlap":
+        fn = tx._nonoverlap_select
+        args = (rng.randint(0, 4080 * 9 * 17, (64, 420)).astype(np.int32),
+                rng.rand(64, 420) < 0.7)
+    elif stage == "regrid":
+        fn = tx._regrid
+        left = rng.randint(0, 420, 64)
+        args = (rng.randint(0, 4080 * 17, (64, 428)).astype(np.int32),
+                left.astype(np.int32),
+                np.minimum(rng.randint(0, 200, 64), 428 - left).astype(
+                    np.int32))
+    else:
+        fn = tx._trim_char
+        args = (rng.randint(0, 4081, (64, 21, 18)).astype(np.int32),
+                rng.randint(-3, 432, 64).astype(np.int32),
+                rng.randint(-2, 256, 64).astype(np.int32),
+                rng.randint(10, 15, 64).astype(np.int32))
+    args = [torch.from_numpy(a) for a in args]
+    for got, want in zip(fn(*(a.to(cuda_device) for a in args)), fn(*args)):
+        assert torch.equal(got.cpu(), want)

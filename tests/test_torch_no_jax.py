@@ -1,5 +1,6 @@
 """The port runs with jax made unimportable, and never imports the JAX
-package: the PAN-only step and the camera step."""
+package: the PAN-only step, the camera step and both full (PAN + expiry)
+steps."""
 
 import os
 import subprocess
@@ -28,6 +29,12 @@ cb, cr = (torch.from_numpy(rng.randint(0, 256, (2, 240, 320)).astype(
 states, (found, frame, result) = port.batched_camera_step(params, states, y,
                                                           cb, cr)
 assert found.shape == (2,) and frame.scores.shape == (2, 16, 10)
+states, (frame, result) = port.batched_scanner_step(params, states, frames,
+                                                    scan_expiry=True)
+assert frame.expiry_groups.valid.shape == (2, 4)
+states, (found, frame, result) = port.batched_camera_step(
+    params, states, y, cb, cr, config=port.config.ScanConfig())
+assert states.scan_expiry.all() and result.expiry_month.shape == (2,)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("cardio_dmz_tpu", "jaxlib"))
 assert not leaked, leaked

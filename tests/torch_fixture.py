@@ -15,7 +15,18 @@ really interpolates. Kept: the frames, and per frame the JAX package's
 found flag, corners, homography, rectified card and frame fields, and the
 final completed digits.
 
-chip_smoke.py replays both through the port on the card, where neither
+expiry_session.npz, the full paths (PAN + expiry): three streams of eight
+rendered card frames (a PAN with "08/28", another PAN with "11/29", and a
+card without an expiry line) go through the JAX package's
+scanner_step(scan_expiry=True), vmapped over streams; and the same cards,
+placed on the guide rect of 480x640 previews, through
+camera_scanner_step(scan_expiry=True). Kept: the card frames (the previews
+are rebuilt from them), and per frame of either path the expiry windows,
+their (4, 5, 10) scores, the expiry state and the date, and the final
+results. The writer asserts that the jitted windows equal the
+ones computed op by op.
+
+chip_smoke.py replays all three through the port on the card, where neither
 JAX nor the renderer is installed. Write the files anew with:
 
     python tests/torch_fixture.py
@@ -40,6 +51,8 @@ from cardio_dmz_tpu.constants import (  # noqa: E402
     ORIENTATION_LANDSCAPE_RIGHT)
 from cardio_dmz_tpu.models.weights import load_all_params  # noqa: E402
 from cardio_dmz_tpu.ops import persp_host  # noqa: E402
+from cardio_dmz_tpu.scan.expiry_device import (  # noqa: E402
+    best_expiry_seg_device, categorize_windows)
 from cardio_dmz_tpu.session import scanner_reset, scanner_step  # noqa: E402
 from cardio_dmz_tpu.session.state import camera_scanner_step  # noqa: E402
 
@@ -47,6 +60,7 @@ _DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "cardio_dmz_tpu_torch", "data")
 FIXTURE = os.path.join(_DATA, "smoke_session.npz")
 CAMERA_FIXTURE = os.path.join(_DATA, "camera_session.npz")
+EXPIRY_FIXTURE = os.path.join(_DATA, "expiry_session.npz")
 NOW = (2026, 1)
 N_FRAMES = 6
 # (pan, y0, noise): two readable PANs, a wrong-Luhn PAN and an upside-down
@@ -266,9 +280,205 @@ def camera_fixture_arrays():
     }
 
 
+# --- the full paths: PAN + expiry ------------------------------------------
+
+EXPIRY_FRAMES = 8
+# (pan, expiry text or None); geometry as in tests/test_expiry_device.py
+EXPIRY_STREAMS = (("4111111111111111", "08/28"),
+                  ("4530504390541813", "11/29"),
+                  ("4111111111111111", None))
+
+
+@functools.lru_cache(maxsize=None)
+def expiry_frames():
+    """(3, 8, 270, 428) uint8."""
+    def render(pan, expiry, seed):
+        if expiry is None:
+            return synthetic.render_frame(pan, y0=150, width=18.0, offset=35,
+                                          seed=seed, noise=1)
+        return synthetic.render_frame_with_expiry(
+            pan, expiry, y0=150, offset=35, expiry_y=212, expiry_x=120,
+            noise=1, seed=seed)
+    return np.stack([np.stack([render(pan, expiry, s)
+                               for s in range(EXPIRY_FRAMES)])
+                     for pan, expiry in EXPIRY_STREAMS])
+
+
+@functools.lru_cache(maxsize=None)
+def expiry_camera_frames():
+    """The cards of expiry_frames() on the guide rect of a preview:
+    Y (3, 8, 480, 640), Cb and Cr (3, 8, 240, 320), all uint8."""
+    planes = [[camera_preview(card) for card in stream]
+              for stream in expiry_frames()]
+    return tuple(np.stack([np.stack([f[k] for f in stream])
+                           for stream in planes]) for k in range(3))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_expiry_step():
+    """The JAX package's full step, vmapped over streams and jitted, with
+    the frame's window scores: (state, y) -> (state, frame, result,
+    scores)."""
+    params = load_all_params()
+
+    def step(state, y):
+        state, (frame, result) = scanner_step(params, state, y,
+                                              scan_expiry=True)
+        scores = categorize_windows(params["expiry_conv"], y,
+                                    frame.expiry_groups)
+        return state, frame, result, scores
+    return jax.jit(jax.vmap(step))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_expiry_camera_step():
+    """The JAX package's full camera step, vmapped and jitted, with the
+    rectified card and the window scores: (state, y, cb, cr) -> (state,
+    found, frame, result, card, scores)."""
+    params = load_all_params()
+
+    def step(state, y, cb, cr):
+        _, card = api.preprocess_frame(y, cb, cr)
+        state, (found, frame, result) = camera_scanner_step(
+            params, state, y, cb, cr, scan_expiry=True)
+        scores = categorize_windows(params["expiry_conv"], card,
+                                    frame.expiry_groups)
+        return state, found, frame, result, card, scores
+    return jax.jit(jax.vmap(step))
+
+
+def _fresh_states(n):
+    return jax.vmap(lambda _: scanner_reset(now=NOW))(jnp.arange(n))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_expiry_session():
+    """jax_expiry_step over expiry_frames(): one (state, frame, result,
+    scores) per step, as numpy, stream-major."""
+    fr = expiry_frames()
+    state = _fresh_states(len(fr))
+    out = []
+    for t in range(EXPIRY_FRAMES):
+        state, *rest = jax_expiry_step()(state, jnp.asarray(fr[:, t]))
+        out.append(_np((state, *rest)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def jax_expiry_camera_session():
+    """jax_expiry_camera_step over expiry_camera_frames(): one (state,
+    found, frame, result, card, scores) per step, as numpy."""
+    y, cb, cr = expiry_camera_frames()
+    state = _fresh_states(len(y))
+    out = []
+    for t in range(EXPIRY_FRAMES):
+        state, *rest = jax_expiry_camera_step()(state, y[:, t], cb[:, t],
+                                                cr[:, t])
+        out.append(_np((state, *rest)))
+    return out
+
+
+def op_by_op_windows(cards, vseg_y, enabled):
+    """best_expiry_seg_device for (N, 270, 428) cards with every JAX op run
+    on its own: no f32 multiply fused into a subtract (the jitted XLA:CPU
+    graph may fuse the regrid's). Windows as a numpy pytree."""
+    slash = load_all_params()["slash_mlp"]
+    with jax.disable_jit():
+        return _np(jax.vmap(
+            lambda y, v, e: best_expiry_seg_device(slash, y, v, e))(
+            jnp.asarray(cards), jnp.asarray(vseg_y), jnp.asarray(enabled)))
+
+
+def assert_windows_uncontracted(windows, cards, vseg_y, enabled):
+    """The jitted JAX windows (N-major) equal the op-by-op ones: the port
+    computes the latter, so only such frames compare."""
+    want = op_by_op_windows(cards, vseg_y, enabled)
+    for name in windows._fields:
+        np.testing.assert_array_equal(getattr(windows, name),
+                                      getattr(want, name), err_msg=name)
+
+
+def _expiry_arrays(run, frame_of, state_of, scores_of, result_of, prefix):
+    def per_frame(get):
+        return np.stack([np.asarray(get(r)) for r in run], axis=1)
+
+    out = {f"window_{k}": per_frame(lambda r: getattr(
+        frame_of(r).expiry_groups, k))
+        for k in ("valid", "top", "left", "char_tops", "char_lefts")}
+    out["window_scores"] = per_frame(scores_of)
+    out.update({f"expiry_{k}": per_frame(lambda r: getattr(
+        state_of(r).expiry, k))
+        for k in ("active", "top", "left", "scores", "recently_seen",
+                  "total_seen")})
+    out.update(
+        vseg_y_offset=per_frame(lambda r: frame_of(r).vseg.y_offset),
+        usable=per_frame(lambda r: frame_of(r).usable),
+        expiry_month=per_frame(lambda r: state_of(r).expiry_month),
+        expiry_year=per_frame(lambda r: state_of(r).expiry_year),
+        complete=per_frame(lambda r: result_of(r).complete),
+        result_month=per_frame(lambda r: result_of(r).expiry_month),
+        result_year=per_frame(lambda r: result_of(r).expiry_year),
+        frames_since_complete=state_of(run[-1]).frames_since_complete,
+        number_complete=state_of(run[-1]).number_complete,
+        completed_digits=state_of(run[-1]).completed_digits,
+        completed_n=state_of(run[-1]).completed_n)
+    return {prefix + k: v for k, v in out.items()}
+
+
+def _windows_of(arrays, prefix):
+    from cardio_dmz_tpu.scan.expiry_device import ExpiryWindows
+    return ExpiryWindows(*(
+        arrays[f"{prefix}window_{k}"].reshape(
+            (-1,) + arrays[f"{prefix}window_{k}"].shape[2:])
+        for k in ExpiryWindows._fields))
+
+
+def _seg_gate(run, frame_of, state_before):
+    """The `enabled` gate each frame's expiry seg ran under, recomputed
+    from its results: (S, T) bool."""
+    from cardio_dmz_tpu.constants import (
+        CARD_HEIGHT, FLIP_VSEG_Y_OFFSET_CUTOFF, MIN_VSEG_SCORE,
+        SMALL_CHARACTER_HEIGHT)
+    gates = []
+    for t, r in enumerate(run):
+        f = frame_of(r)
+        need = np.ones_like(f.usable) if t == 0 else (
+            (state_before(run[t - 1]).expiry_month == 0)
+            | (state_before(run[t - 1]).expiry_year == 0))
+        gates.append((f.vseg.score > MIN_VSEG_SCORE)
+                     & (f.vseg.y_offset >= FLIP_VSEG_Y_OFFSET_CUTOFF)
+                     & (f.vseg.y_offset
+                        < CARD_HEIGHT - 2 * SMALL_CHARACTER_HEIGHT) & need)
+    return np.stack(gates, axis=1)
+
+
+def expiry_fixture_arrays():
+    """What expiry_session.npz holds, computed now from the JAX package."""
+    run = jax_expiry_session()
+    cam = jax_expiry_camera_session()
+    out = {"frames": expiry_frames(), "now": np.asarray(NOW, np.int32),
+           "camera_found": np.stack([r[1] for r in cam], axis=1)}
+    out.update(_expiry_arrays(run, lambda r: r[1], lambda r: r[0],
+                              lambda r: r[3], lambda r: r[2], ""))
+    out.update(_expiry_arrays(cam, lambda r: r[2], lambda r: r[0],
+                              lambda r: r[5], lambda r: r[3], "camera_"))
+    # only frames whose jitted windows equal the op-by-op ones are kept
+    for prefix, cards, gate in (
+            ("", out["frames"], _seg_gate(run, lambda r: r[1],
+                                          lambda r: r[0])),
+            ("camera_", np.stack([r[4] for r in cam], axis=1),
+             _seg_gate(cam, lambda r: r[2], lambda r: r[0])
+             & out["camera_found"])):
+        assert_windows_uncontracted(
+            _windows_of(out, prefix), cards.reshape(-1, 270, 428),
+            out[prefix + "vseg_y_offset"].reshape(-1), gate.reshape(-1))
+    return out
+
+
 if __name__ == "__main__":
     os.makedirs(_DATA, exist_ok=True)
     for path, arrays in ((FIXTURE, fixture_arrays),
-                         (CAMERA_FIXTURE, camera_fixture_arrays)):
+                         (CAMERA_FIXTURE, camera_fixture_arrays),
+                         (EXPIRY_FIXTURE, expiry_fixture_arrays)):
         np.savez_compressed(path, **arrays())
         print(f"wrote {path} ({os.path.getsize(path)} bytes)")

@@ -1,7 +1,7 @@
 """Measure the PyTorch port of several checkouts on one NVIDIA card, in
 turns, with this checkout's chip_smoke.py phases.
 
-    python3 tools/torch_chip_ab.py ROOT [ROOT ...]
+    python3 tools/torch_chip_ab.py [--out FILE] ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout: this repo, or a parent commit
 unpacked with `git archive` into a directory that .gitignore lists. Give
@@ -18,11 +18,16 @@ kernels and measures, with chip_smoke.py's phases:
   alone where ROOT has that instead;
 - pan-256 and camera-256 serving (phases 6 and 10), before the kernels:
   frames/s, step ms, peak memory, the stage split, the card-shaped
-  float64/int32 tensors of one camera step and its profile.
-Each ROOT's run ends in one line "AB {json}". Needs a card and nvcc.
+  float64/int32 tensors of one camera step and its profile;
+- full-256 and camera-full-256 serving (phases 12 and 13: PAN + expiry),
+  where ROOT's steps take scan_expiry.
+Each ROOT's run ends in one line "AB {json}"; with --out FILE the json is
+also appended to FILE, a line a run, for when the output is too long to
+keep. Needs a card and nvcc.
 """
 
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -71,7 +76,7 @@ def warp_entry(cs, port, warp_gather, dev):
     return out
 
 
-def measure(root):
+def measure(root, out_file=None):
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
@@ -101,25 +106,42 @@ def measure(root):
            "persp_qr": cs.persp_phase(persp_qr, dev),
            "persp_floors": cs.persp_floors(dev),
            "warp": warp_entry(cs, port, warp_gather, dev)}
+    if "scan_expiry" in inspect.signature(
+            port.batched_scanner_step).parameters:
+        expiry = cs.load_npz(cs.fixture_path(port, "expiry_session.npz"))
+        dates = cs.fixture_dates(expiry)
+        out["full"] = cs.full_serving_phase(port, kernels, params, expiry,
+                                            dates, card, dev)
+        out["camera_full"] = cs.full_camera_serving_phase(
+            port, kernels, params, expiry, dates, card, dev)
     if hasattr(warp_gather, "warp_perspective_reference"):
         out["warp"]["kernel"] = cs.warp_phase(port, warp_gather, dev)
     maps = out["camera"].pop("card_maps")
     out["camera"]["card_maps"] = {"count": len(maps),
                                   "ops": sorted(set(maps))}
     print("AB " + json.dumps(out), flush=True)
+    if out_file:
+        os.makedirs(os.path.dirname(os.path.abspath(out_file)), exist_ok=True)
+        with open(out_file, "a") as f:
+            f.write(json.dumps(out) + "\n")
 
 
 def main(argv):
+    out_file = None
+    if len(argv) >= 2 and argv[0] == "--out":
+        out_file, argv = os.path.abspath(argv[1]), argv[2:]
     if len(argv) >= 2 and argv[0] == "--one":
-        measure(argv[1])
+        measure(argv[1], out_file)
         return 0
     if not argv:
         sys.exit(__doc__)
     failed = 0
     for root in argv:
         print(f"=== {root}", flush=True)
-        failed |= subprocess.run([sys.executable, os.path.abspath(__file__),
-                                  "--one", root]).returncode != 0
+        command = [sys.executable, os.path.abspath(__file__)]
+        if out_file:
+            command += ["--out", out_file]
+        failed |= subprocess.run(command + ["--one", root]).returncode != 0
     return 1 if failed else 0
 
 
