@@ -17,11 +17,30 @@ What exists, batched over streams (parallel/streams.py):
 * the camera path in front of either: edge detection on 12 bands -> the
   exact Eigen-QR homography (CUDA kernel) -> the exact cvWarpPerspective
   warp (CUDA kernel) -> the scan (batched_camera_step).
+
+And the host side of serving around them:
+* session.HostScanner: the single-stream scanner an app calls frame by
+  frame, the PAN step on the device and the expiry on the host
+  (scan/expiry_seg_host.py, scan/expiry_categorize_host.py, which are also
+  the oracle of the device's expiry read); api.blur_card;
+* session/checkpoint.py: save_session / load_session (torch.save) and the
+  .npz layout either package loads; save_params / load_params_npz;
+* runtime: FramePump (the native frame ring, page-locked batches) and
+  Metrics;
+* parallel: make_mesh / shard_streams / make_sharded_step, the stream axis
+  split over a list of devices;
+* tools/serve_demo.py: camera threads -> FramePump -> the split step ->
+  Metrics.
 """
 
 from . import (  # noqa: F401
-    api, config, constants, models, ops, parallel, scan, session, utils)
+    api, config, constants, models, ops, parallel, runtime, scan, session,
+    tools, utils)
+from .api import blur_card  # noqa: F401
 from .models import load_all_params  # noqa: F401
 from .parallel import (  # noqa: F401
-    batched_camera_step, batched_scanner_step, init_stream_states)
-from .session import scan_frames  # noqa: F401
+    batched_camera_step, batched_scan_frames, batched_scanner_step,
+    init_stream_states, make_mesh, make_sharded_step, shard_streams)
+from .runtime import FramePump, Metrics  # noqa: F401
+from .session import (  # noqa: F401
+    HostScanner, load_session, save_session, scan_frames)

@@ -1,3 +1,5 @@
 from .zoo import (  # noqa: F401
     ExpiryConv, Mlp, PanConv, SlashMlp, pan_digit_scores)
-from .weights import load_all_params, load_np, params_from_numpy  # noqa: F401
+from .weights import (  # noqa: F401
+    load_all_params, load_np, module_from_numpy, params_from_numpy)
+from .selfcheck import all_models_pass, self_check  # noqa: F401

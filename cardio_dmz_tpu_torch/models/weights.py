@@ -29,6 +29,9 @@ _MODELS = {
 }
 # The models of the scan: the PAN path's, the slash MLP and the expiry conv.
 MODEL_NAMES = tuple(_MODELS)
+# model name -> the names of its arrays, as the npz files and the modules'
+# buffers carry them
+MODEL_ARRAYS = {name: keys for name, (_, keys) in _MODELS.items()}
 
 
 def load_np(name, include_test_vectors=False):
@@ -39,19 +42,21 @@ def load_np(name, include_test_vectors=False):
                 if include_test_vectors or not k.startswith("test_")}
 
 
+def module_from_numpy(name, arrays, device):
+    """One model's module on `device` from its {array name: numpy array}."""
+    module, keys = _MODELS[name]
+    return module(*(torch.tensor(np.asarray(arrays[k]), dtype=torch.float32,
+                                 device=device) for k in keys))
+
+
 def params_from_numpy(np_params, device):
     """{model name: {array name: numpy array}} -> {model name: nn.Module}.
 
     Takes the JAX package's parameters as numpy arrays, keyed like its
     load_all_params(), so that both packages compute from the same
     weights."""
-    out = {}
-    for name, (module, keys) in _MODELS.items():
-        tensors = [torch.tensor(np.asarray(np_params[name][k]),
-                                dtype=torch.float32, device=device)
-                   for k in keys]
-        out[name] = module(*tensors)
-    return out
+    return {name: module_from_numpy(name, np_params[name], device)
+            for name in _MODELS}
 
 
 def load_all_params(device):

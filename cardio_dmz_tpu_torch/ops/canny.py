@@ -18,6 +18,8 @@ Counterpart of the JAX package's ops/canny.py on batched bands
 import torch
 import torch.nn.functional as F
 
+from .sobel import sobel7
+
 CANNY_SHIFT = 15
 TG22 = int(0.4142135623730950488016887242097 * (1 << CANNY_SHIFT) + 0.5)
 DEFAULT_SWEEPS = 3
@@ -119,3 +121,34 @@ def canny7_precomputed_sobel(dx, dy, low, high, sweeps=DEFAULT_SWEEPS):
     strong = candidate & (m > high)
     edge = hysteresis_bounded(candidate, strong, sweeps)
     return edge.to(torch.uint8) * 255
+
+
+def adaptive_canny7(image, dx=None, dy=None, sweeps=DEFAULT_SWEEPS):
+    """llcv_adaptive_canny7_precomputed_sobel (cv/canny.cpp:568-580): the
+    thresholds are floor(mean) and floor(3 * mean) of |dx| + |dy| over each
+    image of the batch.
+
+    image: (..., H, W) uint8; dx/dy: its sobel7 derivatives where the
+    caller has them. Returns (edges u8, dx, dy): the Hough stage takes
+    dx/dy again. The mean is a quotient of tensors: a Python divisor on a
+    CUDA tensor multiplies by its reciprocal, and a one-ulp change of the
+    mean can move an integer threshold."""
+    if dx is None:
+        dx = sobel7(image, dx=True, dy=False)
+    if dy is None:
+        dy = sobel7(image, dx=False, dy=True)
+    h, w = image.shape[-2:]
+    total = (dx.abs() + dy.abs()).sum(dim=(-2, -1))
+    mean = total.to(torch.float32) / torch.full(
+        (), float(h * w), dtype=torch.float32, device=image.device)
+    low = torch.floor(mean).to(torch.int32)[..., None, None]
+    high = torch.floor(3.0 * mean).to(torch.int32)[..., None, None]
+    return canny7_precomputed_sobel(dx, dy, low, high, sweeps), dx, dy
+
+
+def canny7(image, low, high, sweeps=DEFAULT_SWEEPS):
+    """llcv_canny7 (cv/canny.cpp:338-352): canny with the given integer
+    thresholds. image: (..., H, W) uint8 -> u8 edge map."""
+    dx = sobel7(image, dx=True, dy=False)
+    dy = sobel7(image, dx=False, dy=True)
+    return canny7_precomputed_sobel(dx, dy, int(low), int(high), sweeps)

@@ -1,4 +1,5 @@
-"""The 3x3 bilateral filter of the expiry digit prep.
+"""Small smoothing filters: the 3x3 bilateral filter of the expiry digit
+prep, and the median blur that hides digits for display.
 
 The reference calls cvSmooth(CV_BILATERAL, 3, 3, 0.95, 2/3)
 (scan/expiry_categorize.cpp:55-60; its variable names are swapped against
@@ -8,6 +9,7 @@ sigmaColor=0.95, sigmaSpace=2/3)).
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -41,3 +43,19 @@ def bilateral3x3(img, sigma_color=BILATERAL_SIGMA_COLOR,
             num = num + nb * wgt
             den = den + wgt
     return torch.round(num / den).to(torch.uint8).reshape(img.shape)
+
+
+def median_blur(img, ksize=25):
+    """Median blur (dmz_blur_card's digit blurring, dmz.cpp:499-515), on
+    the host in numpy: blurring digits for display is a cosmetic step after
+    the scan, not part of it. The border replicates.
+    img: (H, W[, C]) uint8 numpy array -> the same shape and dtype."""
+    img = np.asarray(img)
+    r = ksize // 2
+    img3 = img[:, :, None] if img.ndim == 2 else img
+    padded = np.pad(img3, ((r, r), (r, r), (0, 0)), mode="edge")
+    h, w, c = img3.shape
+    windows = np.lib.stride_tricks.sliding_window_view(
+        padded, (ksize, ksize), axis=(0, 1))  # (h, w, c, k, k)
+    out = np.median(windows.reshape(h, w, c, -1), axis=-1).astype(img.dtype)
+    return out[:, :, 0] if img.ndim == 2 else out

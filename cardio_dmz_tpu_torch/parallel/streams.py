@@ -3,11 +3,19 @@
 Many concurrent camera streams stepped together through the scan pipeline
 and the session state machine. Every function of the port is already
 stream-major, so the batched step is scanner_step over the stream axis;
-the JAX package reaches the same shape with vmap.
+the JAX package reaches the same shape with vmap. make_sharded_step splits
+the stream axis over a list of devices (parallel/mesh.py).
 """
 
+import contextlib
+import copy
+
+import torch
+
 from ..constants import ORIENTATION_LANDSCAPE_RIGHT
-from ..session.state import camera_scanner_step, scanner_reset, scanner_step
+from ..session.state import (
+    camera_scanner_step, scan_frames, scanner_reset, scanner_step)
+from .mesh import data_devices, gather_streams, shard_streams
 
 
 def init_stream_states(n_streams, device, now):
@@ -26,11 +34,85 @@ def batched_scanner_step(params, states, frames, scan_expiry=False,
 
 
 def batched_camera_step(params, states, y, cb, cr, scan_expiry=False,
-                        orientation=ORIENTATION_LANDSCAPE_RIGHT, config=None):
+                        orientation=ORIENTATION_LANDSCAPE_RIGHT, config=None,
+                        iso_speed=None, shutter_speed=None, torch_is_on=None):
     """One camera -> digits step for every stream: edge detection, the
     exact homography and warp, and the scan of batched_scanner_step.
     y: (S, 480, 640) u8; cb/cr: (S, 240, 320) u8 half-size chroma, on the
-    states' device. Returns (states, (found, FrameResult, ScannerResult))."""
+    states' device. iso_speed, shutter_speed, torch_is_on: the cameras'
+    metadata, (S,) tensors or None. Returns (states, (found, FrameResult,
+    ScannerResult))."""
     return camera_scanner_step(params, states, y, cb, cr,
                                scan_expiry=scan_expiry, config=config,
-                               orientation=orientation)
+                               orientation=orientation, iso_speed=iso_speed,
+                               shutter_speed=shutter_speed,
+                               torch_is_on=torch_is_on)
+
+
+def batched_scan_frames(params, frames, now, scan_expiry=False):
+    """Whole sessions for a (S, T, 270, 428) frame tensor, from fresh
+    states on the frames' device: session.scan_frames, which is
+    stream-major already. Returns (final_states, (FrameResults,
+    ScannerResults)) with the per-frame results stacked as (S, T, ...)."""
+    return scan_frames(params, frames, now, scan_expiry=scan_expiry)
+
+
+def device_scope(device):
+    """The context a shard's step runs in: its CUDA device made current
+    (the kernel wrappers launch on the current stream of the current
+    device), nothing for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def replicate_params(params, devices):
+    """{device: params on it}: the modules as they are where they already
+    live, a copy elsewhere. A device named twice shares one copy."""
+    home = next(next(iter(params.values())).buffers()).device
+    copies = {}
+    for device in devices:
+        if device in copies:
+            continue
+        copies[device] = params if home == device else {
+            name: copy.deepcopy(module).to(device)
+            for name, module in params.items()}
+    return copies
+
+
+def make_sharded_step(params, mesh, scan_expiry=False, sizes=None):
+    """batched_scanner_step with the stream axis split over `mesh` (a Mesh
+    or a list of devices; a device may appear twice) and the parameters
+    copied to each device. sizes: streams a shard (as even as they go when
+    None). Returns (step, place, init), as the JAX package's:
+
+    * place(x): a stream-major tensor or NamedTuple -> its list of shards,
+      each on its device (non_blocking copies);
+    * init(n_streams, now): place(fresh states);
+    * step(states, frames), both lists of shards -> (states, (FrameResult,
+      ScannerResult)): the states stay sharded, the results come back
+      stream-major on the first device.
+
+    The shards are stepped one after another from the calling thread; on
+    distinct CUDA devices their kernels overlap, since a launch does not
+    wait for the device."""
+    devices = data_devices(mesh)
+    copies = replicate_params(params, devices)
+
+    def place(x):
+        return shard_streams(devices, x, sizes)
+
+    def init(n_streams, now):
+        return place(init_stream_states(n_streams, devices[0], now))
+
+    def step(states, frames):
+        new_states, outputs = [], []
+        for device, state, shard in zip(devices, states, frames):
+            with device_scope(device):
+                state, out = batched_scanner_step(
+                    copies[device], state, shard, scan_expiry)
+            new_states.append(state)
+            outputs.append(out)
+        return new_states, gather_streams(outputs, devices[0])
+
+    return step, place, init

@@ -8,3 +8,14 @@ from .state import (  # noqa: F401
     scanner_result,
     scanner_step,
 )
+from .host import HostScanner  # noqa: F401
+from .checkpoint import (  # noqa: F401
+    load_params_npz,
+    load_session,
+    load_session_npz,
+    save_params,
+    save_session,
+    save_session_npz,
+    state_from_numpy,
+    state_to_numpy,
+)

@@ -297,21 +297,38 @@ def scanner_step(params, state: ScannerState, y, scan_expiry=False,
     return state, (frame, result)
 
 
+def _metadata(value, dtype, like):
+    """One camera metadata input as an (S,) tensor of `dtype` on the
+    frames' device; None reads as zeros."""
+    if value is None:
+        return torch.zeros(like.shape[:1], dtype=dtype, device=like.device)
+    value = torch.as_tensor(value, device=like.device).to(dtype)
+    if value.shape != like.shape[:1]:
+        raise ValueError(f"camera metadata must be (S,) = "
+                         f"{tuple(like.shape[:1])}; got {tuple(value.shape)}")
+    return value
+
+
 def camera_scanner_step(params, state: ScannerState, y, cb, cr,
                         scan_expiry=False, config=None,
-                        orientation=ORIENTATION_LANDSCAPE_RIGHT):
+                        orientation=ORIENTATION_LANDSCAPE_RIGHT,
+                        iso_speed=None, shutter_speed=None, torch_is_on=None):
     """Camera frame -> digits for every stream: the reference's
     per-preview-frame host loop (dmz_detect_edges + dmz_transform_card,
     dmz.cpp:371-497, then scanner_add_frame) in one step.
 
     y: (S, 480, 640) u8 luma; cb/cr: (S, 240, 320) u8 half-size chroma.
-    The frame's focus and brightness go into its telemetry; the camera
-    metadata fields stay zero. A frame where the card is not found
-    contributes nothing (frame_gate).
+    iso_speed, shutter_speed, torch_is_on: the camera's metadata, (S,)
+    tensors or None (zeros). They and the frame's focus and brightness go
+    into its telemetry and the analytics ring. A frame where the card is
+    not found contributes nothing (frame_gate).
     Returns (state, (found, FrameResult, ScannerResult))."""
     found, card = preprocess_frame(y, cb, cr, orientation)
     telemetry = telemetry_zeros(y.shape[0], y.device)._replace(
-        focus_score=focus_score(y), brightness_score=brightness_score(y))
+        focus_score=focus_score(y), brightness_score=brightness_score(y),
+        iso_speed=_metadata(iso_speed, torch.int32, y),
+        shutter_speed=_metadata(shutter_speed, torch.float32, y),
+        torch_is_on=_metadata(torch_is_on, torch.bool, y))
     state, (frame, result) = scanner_step(params, state, card, scan_expiry,
                                           config, telemetry=telemetry,
                                           frame_gate=found)

@@ -1,8 +1,12 @@
-"""Parametric (rho, theta) line geometry on tensors (geometry.cpp).
+"""Parametric (rho, theta) line geometry (geometry.h / geometry.cpp).
 
-Counterpart of the JAX package's utils/geometry.py
-(parametric_intersect_jax, line_by_shifting_origin_jax). Two numeric
-rules make the port's corners equal the reference's bit for bit:
+Counterpart of the JAX package's utils/geometry.py. Lines are (rho, theta)
+pairs; "none" is theta == FLT_MAX (geometry.cpp:10-12). The scalar Python
+forms keep the reference's names (ParametricLine, parametric_intersect,
+line_by_shifting_origin, inset_rect); the forms on batched tensors that
+the detection runs carry the suffix _torch, as the JAX package's carry
+_jax. Two numeric rules make the tensor forms' corners equal the
+reference's bit for bit:
 
 * sin and cos are taken in float64 and rounded to float32. The angles
   that reach here are the Hough stage's f32 angles (and 0 for a line
@@ -17,8 +21,58 @@ rules make the port's corners equal the reference's bit for bit:
 """
 
 import math
+from dataclasses import dataclass
 
 import torch
+
+_FLT_MAX = 3.4028235e38
+
+
+@dataclass(frozen=True)
+class ParametricLine:
+    rho: float
+    theta: float
+
+
+def parametric_line_none() -> ParametricLine:
+    return ParametricLine(0.0, _FLT_MAX)
+
+
+def is_parametric_line_none(line: ParametricLine) -> bool:
+    return line.theta == _FLT_MAX
+
+
+def parametric_intersect(line1: ParametricLine, line2: ParametricLine):
+    """geometry.cpp:14-32 on two scalar lines. Returns (ok, x, y)."""
+    if is_parametric_line_none(line1) or is_parametric_line_none(line2):
+        return False, 0.0, 0.0
+    c1, s1 = math.cos(line1.theta), math.sin(line1.theta)
+    c2, s2 = math.cos(line2.theta), math.sin(line2.theta)
+    det = c1 * s2 - s1 * c2
+    if det < 1e-10:
+        return False, 0.0, 0.0
+    x = (s2 * line1.rho - s1 * line2.rho) / det
+    y = (-c2 * line1.rho + c1 * line2.rho) / det
+    return True, x, y
+
+
+def line_by_shifting_origin(line: ParametricLine, x_offset,
+                            y_offset) -> ParametricLine:
+    """geometry.cpp:34-43: re-express an ROI-local line in full-image
+    coordinates."""
+    if x_offset == 0:
+        offset_angle = math.pi / 2.0
+    else:
+        offset_angle = math.atan(float(y_offset) / float(x_offset))
+    delta_angle = line.theta - offset_angle + math.pi / 2.0
+    offset_magnitude = math.sqrt(x_offset * x_offset + y_offset * y_offset)
+    delta_rho = offset_magnitude * math.cos(math.pi / 2.0 - delta_angle)
+    return ParametricLine(line.rho + delta_rho, line.theta)
+
+
+def inset_rect(x, y, w, h, dx, dy):
+    """cvInsetRect (geometry.h:10-15): shrink a rect by (dx, dy) a side."""
+    return x + dx, y + dy, w - 2 * dx, h - 2 * dy
 
 
 def sin_cos(theta):
@@ -27,7 +81,7 @@ def sin_cos(theta):
     return torch.sin(t).to(torch.float32), torch.cos(t).to(torch.float32)
 
 
-def parametric_intersect(rho1, theta1, rho2, theta2):
+def parametric_intersect_torch(rho1, theta1, rho2, theta2):
     """geometry.cpp:14-32 on batched lines. Returns (ok, x, y); like the
     reference, ok tests the signed determinant, det >= 1e-10."""
     s1, c1 = sin_cos(theta1)
@@ -40,7 +94,7 @@ def parametric_intersect(rho1, theta1, rho2, theta2):
     return ok, torch.where(ok, x, 0.0), torch.where(ok, y, 0.0)
 
 
-def line_by_shifting_origin(rho, theta, x_offset, y_offset):
+def line_by_shifting_origin_torch(rho, theta, x_offset, y_offset):
     """geometry.cpp:34-43: re-express a band-local line in full-image
     coordinates; the offsets are the band's (static) origin."""
     if x_offset == 0:

@@ -1,6 +1,8 @@
 """Drive the PyTorch port's serving paths once on one NVIDIA card: the
-PAN-only step on rectified cards, the camera step in front of it, and both
-with the in-graph expiry read (the full steps).
+PAN-only step on rectified cards, the camera step in front of it, both
+with the in-graph expiry read (the full steps), and the host side of
+serving around them: the single-stream HostScanner, checkpoints, the step
+split over a device list, and the serving loop behind the frame pump.
 
     python3 chip_smoke.py            (from the repo root, on a CUDA machine)
 
@@ -8,14 +10,17 @@ Phases, in order; a phase that fails raises and the script exits non-zero
 without printing its last line:
 
 1. device   the card's name and power limit (nvidia-smi); TF32 off
-2. build    nvcc builds the three kernels from csrc/, one process each, all
-            started together (-Xptxas -v shown)
+2. build    nvcc builds the three kernels from csrc/, one process each, and
+            g++ the frame pump, all started together (-Xptxas -v shown)
 3. kernel   digit-prep kernel == its plain PyTorch version, bit for bit, at
             256 streams x 16 cells on uniform-noise strips, on the PAN
             strips of the recorded fixture frames (through vseg and hseg)
-            and on an all-equal strip (every gradient 0); kernel times on
-            each, the plain version's on the real strips
+            and on an all-equal strip (every gradient 0), and on the first
+            1, 2, 3, 16, 127 and 129 streams of each (STREAM_COUNTS: the
+            stream counts of the later phases); kernel times on each set at
+            256 streams, the plain version's on the real strips
 4. models   the reference's golden vectors on the card, at 1e-5
+            (models/selfcheck.self_check)
 5. session  the recorded fixture sessions (cardio_dmz_tpu_torch/data/
             smoke_session.npz, written from the JAX package by
             tests/torch_fixture.py) through scan_frames: every discrete
@@ -26,7 +31,8 @@ without printing its last line:
             step ms, peak memory and a per-stage split
 7. persp    persp-QR kernel == its plain version, bit for bit and NaN
             included, on 256 detector-realistic corner sets and an all-zero
-            one, and at 1, 3, 255, 256 and 257 streams (degenerate sets
+            one, and at 1, 2, 3, 16, 127, 129, 255, 256 and 257 streams
+            (degenerate sets
             first: all zero, a repeated, an inf and a NaN corner) with the
             card's destination and with a rectangle a stream; kernel, plain
             and torch.linalg.solve_ex times at 256 streams, the bound, the
@@ -36,7 +42,9 @@ without printing its last line:
 8. warp     the exact-warp kernel (coordinate maps computed in the kernel)
             == its plain route (float64 maps, then the gather), u8 for u8,
             on 256 uniform-noise frames through envelope quads, landscape
-            and portrait, and on a NaN homography (all-zero corners)
+            and portrait, and on a NaN homography (all-zero corners), and
+            at 1, 2, 3, 16, 127 and 129 of those streams, the NaN one among
+            them; kernel times at 256 streams
 9. camera   the recorded camera sessions (data/camera_session.npz, written
             from the JAX package by tests/torch_fixture.py) through
             batched_camera_step frame by frame: found flags, corners and
@@ -71,6 +79,45 @@ without printing its last line:
 13. full camera serving
             the same for batched_camera_step(scan_expiry=True) at 256
             streams of previews; all three kernels launched once a step
+14. host scanner
+            session.HostScanner on the card over the expiry fixture's three
+            cards, frame by frame: usable, vseg/hseg outputs, complete,
+            predictions, month and year equal the JAX HostScanner's
+            (data/host_session.npz, written from the JAX package by
+            tests/torch_fixture.py); both dated cards read PAN and date, the
+            undated one completes only through the grace rule; the host
+            oracle's expiry groups equal the JAX package's, and equal the
+            port's device path on the card; digit prep launched once a
+            frame at one stream; ms a frame, the PAN step and the host
+            expiry apart
+15. camera metadata and portrait
+            the fixture's oriented camera runs (the cards on the portrait
+            and on the landscape-left guide rect, non-zero iso / shutter /
+            torch) through batched_camera_step(orientation=...): found
+            flags, corners and homographies (f32 bits), cards, scan fields,
+            telemetry and every field of the analytics ring equal the JAX
+            package's; all three kernels launched once a step
+16. checkpoint
+            the 256-stream full session of phase 12 stopped midway, saved
+            as .npz and with torch.save, loaded to the card and continued:
+            every state leaf and result equals the uninterrupted run's bit
+            for bit; the fixture's checkpoint, written by the JAX package,
+            continues to the recorded reads
+17. split step
+            make_sharded_step over [cuda:0] and over [cuda:0, cuda:0] as
+            129 + 127 streams, PAN-only and full, and the camera step a
+            shard, against the unsplit step: over [cuda:0] bit for bit;
+            over the uneven two, every integer and bool leaf equal and
+            the float leaves within 1e-5 (the GEMM library picks its
+            kernel, and with it its summation order, by the call's row
+            count); each kernel's launches are the shards times the
+            unsplit count; step ms beside the unsplit step's
+18. serving loop
+            tools/serve_demo.py on the card: 16 camera threads at 30
+            frames/s -> FramePump (page-locked batches) -> the split step
+            -> Metrics, for 3 s: every stream's accepted read is its
+            fixture PAN, fresh + stale frames = steps x streams; the
+            metrics text is printed
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times from
 kernel_ms: many calls captured in one CUDA graph and replayed, so the
@@ -100,6 +147,11 @@ import numpy as np
 import torch
 
 N_STREAMS = 256          # the serving shape of tools/bench.py
+# every stream count at which a later phase launches a kernel: HostScanner
+# (1), the fixture sessions (2, 3), the serving loop (16), the uneven split
+# (127, 129) and the serving shape; each kernel is held against its plain
+# version at each of them
+STREAM_COUNTS = (1, 2, 3, 16, 127, 129, N_STREAMS)
 WARMUP, STEPS = 3, 20
 KERNEL_REPS = 50
 SCORE_ATOL = 1e-5        # the reference's golden tolerance
@@ -238,26 +290,30 @@ def read_launches(modules):
     return {name: module.LAUNCHES for name, module in modules.items()}
 
 
-def build_phase(modules):
+def build_phase(modules, ingest):
     phase("2 build")
     logs, errors = {}, {}
 
     def build(name):
         try:
-            logs[name] = modules[name].KERNEL.build()
+            if name == "framepump":
+                logs[name] = ingest.build()
+            else:
+                logs[name] = modules[name].KERNEL.build()
         except Exception as e:  # re-raised below, after every build ends
             errors[name] = e
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=build, args=(name,))
-               for name in modules]
+               for name in list(modules) + ["framepump"]]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise RuntimeError(f"build failed: {errors}")
-    print(f"built {len(logs)} kernels in {time.perf_counter() - t0:.2f} s")
+    print(f"built {len(modules)} kernels and the frame pump "
+          f"({logs.pop('framepump')}) in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         print(f"{name}: {modules[name].KERNEL.library}")
         for line in log.splitlines():
@@ -324,6 +380,13 @@ def kernel_phase(port, digit_prep, fixture, dev):
             raise AssertionError(f"digit-prep kernel != plain version on "
                                  f"{name} strips, max abs difference {err}")
         max_err = max(max_err, err)
+        for n in STREAM_COUNTS[:-1]:
+            part = strips[:n].contiguous(), offsets[:n].contiguous()
+            if not torch.equal(
+                    digit_prep.prepare_digit_cells(*part),
+                    digit_prep.prepare_digit_cells_reference(*part)):
+                raise AssertionError(f"digit-prep kernel != plain version "
+                                     f"on {name} strips at {n} streams")
         times[name] = kernel_ms(
             lambda: digit_prep.prepare_digit_cells(strips, offsets))[0]
     strips, offsets = inputs["real"]
@@ -331,7 +394,8 @@ def kernel_phase(port, digit_prep, fixture, dev):
         lambda: digit_prep.prepare_digit_cells_reference(strips, offsets))
     bound_ms, bound_by = bound(digit_prep_bytes(offsets))
     print(f"digit_prep at {N_STREAMS}x16 cells: equal bit for bit on noise, "
-          f"real and all-equal strips; kernel ms " + ", ".join(
+          f"real and all-equal strips, and at {STREAM_COUNTS[:-1]} streams "
+          f"of each; kernel ms " + ", ".join(
               f"{k} {v:.5f}" for k, v in times.items())
           + f"; plain {plain_ms:.5f} ms ({method}) on the real strips; "
           f"bound {bound_ms:.5f} ms ({bound_by})")
@@ -342,15 +406,10 @@ def kernel_phase(port, digit_prep, fixture, dev):
 
 def models_phase(port, dev):
     phase("4 models")
-    models = port.load_all_params(dev)
-    for name in port.models.weights.MODEL_NAMES:
-        golden = port.models.load_np(name, include_test_vectors=True)
-        out = models[name](torch.from_numpy(golden["test_input"]).to(dev))
-        err = np.abs(out.cpu().numpy() - golden["test_output"]).max()
-        if not err <= SCORE_ATOL:
-            raise AssertionError(f"{name}: golden max abs error {err}")
-        print(f"{name}: golden max abs error {err:.3g}")
-    return models
+    results = port.models.self_check(dev, verbose=True)
+    if not all(results.values()):
+        raise AssertionError(f"golden self-check failed: {results}")
+    return port.load_all_params(dev)
 
 
 def _pan(digits):
@@ -613,7 +672,7 @@ def sm_clock_mhz():
         text=True).stdout.split()[0])
 
 
-PERSP_COUNTS = (1, 3, 255, 256, 257)
+PERSP_COUNTS = tuple(sorted({*STREAM_COUNTS, 255, 257}))
 
 
 def dest_rects(rng, n):
@@ -630,7 +689,7 @@ def dest_rects(rng, n):
 def persp_cases(persp_qr, dev):
     """The kernel against its plain version, bit for bit, at each of
     PERSP_COUNTS streams, the last block (eight streams, two a warp) part
-    full but at 256: the degenerate sets (all zero, a repeated corner, an
+    full but at 16 and 256: the degenerate sets (all zero, a repeated corner, an
     inf and a NaN corner) first, then detector-realistic quads; with the
     card's destination for every stream and with a rectangle a stream."""
     rng = np.random.RandomState(3)
@@ -765,6 +824,16 @@ def warp_phase(port, warp, dev):
             raise AssertionError("want a NaN homography for the all-zero "
                                  "corners and a zero card from it")
         max_err = max(max_err, err)
+        for n in STREAM_COUNTS[:-1]:
+            # n - 1 streams and the NaN one; at one stream each alone
+            for rows in ([0], [N_STREAMS]) if n == 1 else (
+                    list(range(n - 1)) + [N_STREAMS],):
+                part = frames[rows], m[rows], CARD_SHAPE, transpose
+                if not torch.equal(
+                        warp.warp_perspective_exact(*part),
+                        warp.warp_perspective_reference(*part)):
+                    raise AssertionError(f"warp kernel != plain route "
+                                         f"({name}) at {n} streams")
         args = (frames[:N_STREAMS].contiguous(), m[:N_STREAMS].contiguous(),
                 CARD_SHAPE, transpose)
         times[name], method = kernel_ms(
@@ -778,8 +847,9 @@ def warp_phase(port, warp, dev):
     n_bytes = tapped_pixels(port, m, FRAME_SHAPE) + m.numel() * 4 + pixels
     flops = pixels * WARP_F64_PER_PIXEL + N_STREAMS * WARP_F64_PER_STREAM
     bound_ms, bound_by = bound(n_bytes, flops, "f64")
-    print(f"warp at {N_STREAMS} streams (+1 NaN homography), landscape and "
-          f"portrait: kernel == plain route u8 for u8; kernel landscape "
+    print(f"warp at {N_STREAMS} streams (+1 NaN homography) and at "
+          f"{STREAM_COUNTS[:-1]} streams (the NaN one among them), landscape "
+          f"and portrait: kernel == plain route u8 for u8; kernel landscape "
           f"{ms:.5f} ms, portrait {times['portrait']:.5f} ms ({method}), "
           f"plain landscape {plain_ms:.5f} ms ({plain_method});"
           f" bound {bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {flops} f64 "
@@ -980,13 +1050,32 @@ def camera_serving_phase(port, kernels, params, fixture, pans, card, dev):
             "profile": profile}
 
 
-def paste_previews(cards, bg=50):
-    """Cards (..., 270, 428) u8 on the landscape guide rect of 480x640 Y
+# dmz's FrameOrientation values (constants.py), by name
+ORIENTATIONS = {"portrait": 1, "portrait_upside_down": 2,
+                "landscape_right": 3, "landscape_left": 4}
+
+
+def paste_previews(cards, bg=50, orientation="landscape_right",
+                   shift=(0, 0)):
+    """Cards (..., 270, 428) u8 on an orientation's guide rect of 480x640 Y
     previews with flat 128 half-size chroma, as tests/torch_fixture.py
-    places them: (y, cb, cr) numpy."""
+    places them: (y, cb, cr) numpy. A landscape_left card stands on its
+    head in the landscape rect; a portrait card lies on its side in the
+    portrait rect, its top edge to the left (portrait) or to the right
+    (portrait_upside_down). shift = (dx, dy) moves the card off the rect
+    by whole pixels."""
     y = np.full(cards.shape[:-2] + FRAME_SHAPE, bg, np.uint8)
-    (x0, y0), _, _, (x1, y1) = GUIDE_LANDSCAPE
-    y[..., y0:y1, x0:x1] = cards
+    dx, dy = shift
+    if orientation.startswith("landscape"):
+        (x0, y0), _, _, (x1, y1) = GUIDE_LANDSCAPE + np.array([dx, dy])
+        turned = cards if orientation == "landscape_right" \
+            else cards[..., ::-1, ::-1]
+        y[..., y0:y1, x0:x1] = turned
+    else:
+        (x0, y1), (_, y0), (x1, _), _ = GUIDE_PORTRAIT + np.array([dx, dy])
+        turned = np.rot90(cards, 1 if orientation == "portrait" else -1,
+                          axes=(-2, -1))
+        y[..., y0 + 1:y1 + 1, x0:x1] = turned
     cbcr = np.full(cards.shape[:-2] + (240, 320), 128, np.uint8)
     return y, cbcr, cbcr.copy()
 
@@ -1173,7 +1262,7 @@ def _check_full(fixture, dates, streams, states, results, launches, want):
             f"{int(results.complete.sum())}/{N_STREAMS} streams completed, "
             f"{sum(g == w for g, w in zip(got, expected))} with the right "
             f"PAN and date")
-    if launches != want:
+    if want is not None and launches != want:
         raise AssertionError(f"want kernel launches {want} in "
                              f"{WARMUP + STEPS} steps; got {launches}")
 
@@ -1262,18 +1351,537 @@ def full_camera_serving_phase(port, kernels, params, fixture, dates, card,
             "peak_mib": peak_mib, "split": split, "profile": profile}
 
 
+def _host_groups(groups):
+    """Host expiry groups as the set the device's windows compare with."""
+    return {(g.top, g.left, tuple(r.top for r in g.character_rects),
+             tuple(r.left for r in g.character_rects)) for g in groups}
+
+
+HOST_MAX_GROUPS = 4       # expiry groups a frame kept in the host fixture
+
+
+def group_rects(groups):
+    """Host expiry groups as the host fixture keeps them: (count, tops
+    (4, 5), lefts (4, 5)) of the groups' char rects, -1 where there is no
+    group."""
+    tops = np.full((HOST_MAX_GROUPS, 5), -1, np.int32)
+    lefts = np.full((HOST_MAX_GROUPS, 5), -1, np.int32)
+    for i, g in enumerate(groups[:HOST_MAX_GROUPS]):
+        tops[i] = [r.top for r in g.character_rects]
+        lefts[i] = [r.left for r in g.character_rects]
+    return np.int32(len(groups)), tops, lefts
+
+
+def host_device_windows_agree(port, params, frames, vseg_y):
+    """The port's host oracle against its device path on (N, 270, 428)
+    frames at their vseg rows: every valid window of
+    best_expiry_seg_device is a group of best_expiry_seg, with equal char
+    rects, and the other way round. Returns the number of windows."""
+    dev = frames.device
+    windows = port.scan.expiry_device.best_expiry_seg_device(
+        params["slash_mlp"], frames, vseg_y,
+        torch.ones(len(frames), dtype=torch.bool, device=dev))
+    valid, top, left, tops, lefts = (getattr(windows, k).cpu().numpy()
+                                     for k in windows._fields)
+    n_windows = 0
+    for i, y in enumerate(frames.cpu().numpy()):
+        host = _host_groups(port.scan.best_expiry_seg(
+            y, int(vseg_y[i]), params["slash_mlp"])[0])
+        device = {(int(top[i, w]), int(left[i, w]), tuple(tops[i, w]),
+                   tuple(lefts[i, w])) for w in np.nonzero(valid[i])[0]}
+        if host != device:
+            raise AssertionError(f"frame {i}: host oracle {sorted(host)} != "
+                                 f"device path {sorted(device)}")
+        n_windows += len(device)
+    return n_windows
+
+
+def host_ms(fn, reps):
+    """Median host-clock ms of `reps` calls of fn, each ended by a
+    synchronize."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def host_scanner_phase(port, kernels, params, expiry, host, card, dev):
+    phase("14 host scanner")
+    frames = expiry["frames"]                        # (3, T, 270, 428)
+    n_frames = frames.shape[1]
+    scanner = port.HostScanner(params, now=tuple(host["now"].tolist()))
+    if scanner.device != dev:
+        raise AssertionError(f"HostScanner runs on {scanner.device}")
+    reads, frame_ms = [], []
+    for s, stream in enumerate(frames):
+        scanner.reset()
+        reset_launches(kernels)
+        for t, y in enumerate(stream):
+            t0 = time.perf_counter()
+            frame, result = scanner.add_frame(y)
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            n_groups, tops, lefts = group_rects(port.scan.best_expiry_seg(
+                y, int(frame.vseg.y_offset), params["slash_mlp"])[0])
+            got = {
+                "usable": bool(frame.usable),
+                "vseg_y_offset": int(frame.vseg.y_offset),
+                "vseg_pattern_type": int(frame.vseg.pattern_type),
+                "hseg_n_offsets": int(frame.hseg.n_offsets),
+                "hseg_offsets": frame.hseg.offsets.cpu().numpy(),
+                "complete": bool(result.complete),
+                "predictions": result.predictions,
+                "expiry_month": result.expiry_month,
+                "expiry_year": result.expiry_year,
+                "state_month": scanner.expiry_month,
+                "state_year": scanner.expiry_year,
+                "n_groups": n_groups, "group_tops": tops,
+                "group_lefts": lefts}
+            for key, value in got.items():
+                if not np.array_equal(value, host[f"host_{key}"][s, t]):
+                    raise AssertionError(
+                        f"HostScanner stream {s} frame {t}: {key} = {value}; "
+                        f"the JAX package's {host[f'host_{key}'][s, t]}")
+        launches = read_launches(kernels)
+        if launches != {"digit_prep": n_frames, "warp_gather": 0,
+                        "persp_qr": 0}:
+            raise AssertionError(f"want digit prep launched once a frame at "
+                                 f"one stream; got {launches}")
+        reads.append((scanner.card_number, result.complete,
+                      f"{result.expiry_month:02d}/{result.expiry_year}"))
+    pans = fixture_pans(expiry)
+    dates = fixture_dates(expiry)
+    if reads != [(pans[0], True, dates[0]), (pans[1], True, dates[1]),
+                 (pans[2], False, "00/0")]:
+        raise AssertionError(f"HostScanner read {reads}")
+    # the undated card is the last session: it completes through grace only
+    grace = port.session.state.EXPIRY_GRACE_FRAMES
+    for since, want in ((grace, False), (grace + 1, True)):
+        scanner.state = scanner.state._replace(
+            frames_since_complete=torch.full_like(
+                scanner.state.frames_since_complete, since))
+        if scanner.result().complete != want or scanner.result().expiry_month:
+            raise AssertionError(f"grace rule: {since} frames after the "
+                                 f"number complete={not want}")
+
+    flat = torch.from_numpy(frames.reshape((-1,) + CARD_SHAPE)).to(dev)
+    vseg_y = torch.from_numpy(
+        host["host_vseg_y_offset"].reshape(-1).astype(np.int32)).to(dev)
+    n_windows = host_device_windows_agree(port, params, flat, vseg_y)
+
+    # one frame's parts: the PAN step at one stream, and the host expiry
+    y = frames[0, 0]
+    state = port.init_stream_states(1, dev, (2026, 1))
+    y_dev = torch.from_numpy(y).to(dev)[None]
+    pan_ms = host_ms(lambda: port.session.scanner_step(
+        params, state, y_dev, scan_expiry=False), 20)
+
+    def host_expiry():
+        groups, _ = port.scan.best_expiry_seg(y, 150, params["slash_mlp"])
+        port.scan.expiry_extract(y, [], groups, params["expiry_conv"],
+                                 now=(2026, 1))
+    expiry_ms = host_ms(host_expiry, 20)
+    print(f"HostScanner on {dev}: {len(frames)} sessions x {n_frames} frames "
+          f"equal the JAX HostScanner's frame by frame; reads {reads}; the "
+          f"undated card completes after {grace + 1} frames of grace; host "
+          f"oracle == device path on {len(flat)} frames ({n_windows} "
+          f"windows); launches a session {launches}; add_frame median "
+          f"{statistics.median(frame_ms):.3f} ms (PAN step at 1 stream "
+          f"{pan_ms:.3f} ms, host expiry {expiry_ms:.3f} ms); card {card}")
+    return {"launches": launches,
+            "frame_ms": statistics.median(frame_ms), "pan_step_ms": pan_ms,
+            "host_expiry_ms": expiry_ms}
+
+
+ORIENTED = ("portrait", "landscape_left")    # the host fixture's camera runs
+_CORNER_NAMES = ("tl", "tr", "bl", "br")
+
+
+def _oriented_inputs(expiry, host, orientation, dev):
+    """The host fixture's camera run at an orientation: per frame the
+    (y, cb, cr) planes and the (iso, shutter, torch) metadata, on dev."""
+    n_streams, n_frames = host["iso_speed"].shape
+    planes = paste_previews(expiry["frames"][:n_streams, :n_frames],
+                            orientation=orientation)
+    return [(tuple(torch.from_numpy(np.ascontiguousarray(p[:, t])).to(dev)
+                   for p in planes),
+             tuple(torch.from_numpy(np.ascontiguousarray(host[k][:, t])).to(
+                 dev) for k in ("iso_speed", "shutter_speed", "torch_is_on")))
+            for t in range(n_frames)]
+
+
+def _oriented_step(port, params, state, orientation, planes, meta):
+    return port.batched_camera_step(
+        params, state, *planes, orientation=ORIENTATIONS[orientation],
+        iso_speed=meta[0], shutter_speed=meta[1], torch_is_on=meta[2])
+
+
+def _compare(got, want, name, rtol=0.0, atol=0.0):
+    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+    if np.issubdtype(np.asarray(want).dtype, np.floating) and (rtol or atol):
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                   err_msg=name)
+    elif not np.array_equal(got, want):
+        raise AssertionError(f"{name} differs from the JAX package's:\n"
+                             f"{got}\n{want}")
+
+
+def _compare_final(state, host, prefix):
+    """A camera run's final reads and every field of its analytics ring
+    against the host fixture's."""
+    for key in ("number_complete", "completed_digits", "completed_n"):
+        _compare(getattr(state, key), host[prefix + key], prefix + key)
+    for key in state.analytics._fields:
+        _compare(getattr(state.analytics, key),
+                 host[f"{prefix}analytics_{key}"], f"{prefix}analytics_{key}",
+                 rtol=TELEMETRY_RTOL, atol=SCORE_ATOL)
+
+
+def oriented_camera_phase(port, kernels, params, expiry, host, dev):
+    phase("15 camera metadata and portrait")
+    dst = torch.tensor(CARD_DEST, dtype=torch.float32, device=dev)
+    now = tuple(host["now"].tolist())
+    out = {}
+    for orientation in ORIENTED:
+        prefix = f"{orientation}_"
+        inputs = _oriented_inputs(expiry, host, orientation, dev)
+        n_streams = inputs[0][0][0].shape[0]
+        state = port.init_stream_states(n_streams, dev, now)
+        reset_launches(kernels)
+        run = []
+        for planes, meta in inputs:
+            state, (found, fr, _) = _oriented_step(port, params, state,
+                                                   orientation, planes, meta)
+            run.append((found, fr))
+        torch.cuda.synchronize()
+        launches = read_launches(kernels)
+        if any(n != len(inputs) for n in launches.values()):
+            raise AssertionError(f"want each kernel launched once a step; "
+                                 f"got {launches}")
+
+        def per_frame(get):
+            return np.stack([get(*r).cpu().numpy() for r in run], axis=1)
+
+        for key, get, rtol, atol in (
+                ("found", lambda f, fr: f, 0, 0),
+                ("vseg_y_offset", lambda f, fr: fr.vseg.y_offset, 0, 0),
+                ("hseg_n_offsets", lambda f, fr: fr.hseg.n_offsets, 0, 0),
+                ("hseg_offsets", lambda f, fr: fr.hseg.offsets, 0, 0),
+                ("usable", lambda f, fr: fr.usable, 0, 0),
+                ("scores", lambda f, fr: fr.scores, 0, SCORE_ATOL),
+                ("focus_score", lambda f, fr: fr.focus_score,
+                 TELEMETRY_RTOL, 0),
+                ("brightness_score", lambda f, fr: fr.brightness_score,
+                 TELEMETRY_RTOL, 0),
+                ("frame_iso_speed", lambda f, fr: fr.iso_speed, 0, 0),
+                ("frame_shutter_speed", lambda f, fr: fr.shutter_speed, 0, 0),
+                ("frame_torch_is_on", lambda f, fr: fr.torch_is_on, 0, 0)):
+            _compare(per_frame(get), host[prefix + key], prefix + key, rtol,
+                     atol)
+        _compare_final(state, host, prefix)
+        if not host[prefix + "analytics_iso_speed"].any():
+            raise AssertionError("the fixture's metadata is all zero")
+
+        order = [_CORNER_NAMES.index(k) for k in
+                 port.api._CORNER_ORDER[ORIENTATIONS[orientation]]]
+        corners, homography, cards = [], [], []
+        for t, (planes, _) in enumerate(inputs):
+            _, points = port.api.detect_edges(*planes,
+                                              ORIENTATIONS[orientation])
+            c = _corners(points)
+            corners.append(c.cpu().numpy())
+            homography.append(port.ops.eigen_persp_transform(
+                c[:, order], dst).cpu().numpy())
+            if t in (0, len(inputs) - 1):
+                cards.append(port.api.preprocess_frame(
+                    *planes, ORIENTATIONS[orientation])[1].cpu().numpy())
+        for key, value in (("corners", np.stack(corners, 1)),
+                           ("homography", np.stack(homography, 1))):
+            if not np.array_equal(value.view(np.int32),
+                                  host[prefix + key].view(np.int32)):
+                raise AssertionError(f"{prefix}{key} differ from the JAX "
+                                     f"package's in their f32 bits")
+        _compare(np.stack(cards, 1), host[prefix + "card"], prefix + "card")
+        out[orientation] = launches
+        print(f"{orientation}: {n_streams} streams x {len(inputs)} frames "
+              f"through batched_camera_step with iso / shutter / torch: "
+              f"found, scan fields, telemetry and the analytics ring equal "
+              f"the JAX package's, corners and homographies bit for bit, "
+              f"cards u8 for u8; complete "
+              f"{state.number_complete.cpu().tolist()}; launches {launches}")
+    return out
+
+
+def _leaves(port, state):
+    return port.session.checkpoint.state_leaves(state)
+
+
+def _assert_trees_equal(a, b, what, float_atol=0.0):
+    """Two (nested) tuples of tensors equal leaf by leaf: dtype, shape and
+    every bit (NaN included). With float_atol the float leaves may differ
+    by that much; integer and bool leaves stay exact. Returns the largest
+    float difference seen."""
+    if isinstance(a, tuple):
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: {len(a)} fields against {len(b)}")
+        worst = 0.0
+        for i, (x, y) in enumerate(zip(a, b)):
+            name = a._fields[i] if hasattr(a, "_fields") else i
+            worst = max(worst, _assert_trees_equal(x, y, f"{what}.{name}",
+                                                   float_atol))
+        return worst
+    if a.dtype != b.dtype or a.shape != b.shape:
+        raise AssertionError(f"{what}: {a.dtype} {tuple(a.shape)} against "
+                             f"{b.dtype} {tuple(b.shape)}")
+    b = b.to(a.device)
+    if not a.is_floating_point():
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} differs")
+        return 0.0
+    if _bits_equal(a, b):
+        return 0.0
+    err = _max_abs_err(a, b)
+    if not err <= float_atol or not torch.equal(torch.isfinite(a),
+                                                torch.isfinite(b)):
+        raise AssertionError(f"{what} differs by {err}")
+    return err
+
+
+def _full_steps(expiry, dates, dev):
+    """Phase 12's inputs: the fixture's dated cards tiled to N_STREAMS,
+    one (N_STREAMS, 270, 428) tensor a frame."""
+    n_dated = sum(d != "00/0" for d in dates)
+    streams = np.arange(N_STREAMS) % n_dated
+    return streams, [torch.from_numpy(np.ascontiguousarray(
+        expiry["frames"][streams, t])).to(dev)
+        for t in range(expiry["frames"].shape[1])]
+
+
+def checkpoint_phase(port, kernels, params, expiry, host, dates, dev):
+    phase("16 checkpoint")
+    import tempfile
+    ckpt = port.session.checkpoint
+    streams, steps = _full_steps(expiry, dates, dev)
+    now = tuple(expiry["now"].tolist())
+    mid = len(steps) // 2
+
+    def run(state, t0, t1):
+        results = None
+        for t in range(t0, t1):
+            state, (_, results) = port.batched_scanner_step(
+                params, state, steps[t], scan_expiry=True)
+        return state, results
+
+    mid_state, _ = run(port.init_stream_states(N_STREAMS, dev, now), 0, mid)
+    final, results = run(mid_state, mid, len(steps))
+    _check_full(expiry, dates, streams, final, results, None, None)
+    sizes = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for fmt, save, load in (
+                ("npz", ckpt.save_session_npz, ckpt.load_session_npz),
+                ("torch.save", ckpt.save_session, ckpt.load_session)):
+            path = os.path.join(tmp, "mid.npz" if fmt == "npz" else "mid.pt")
+            save(path, mid_state)
+            sizes[fmt] = os.path.getsize(path)
+            loaded = load(path, device=dev)
+            if any(leaf.device != dev for leaf in _leaves(port, loaded)):
+                raise AssertionError(f"{fmt}: loaded off {dev}")
+            _assert_trees_equal(loaded, mid_state, f"{fmt} loaded state")
+            resumed, resumed_results = run(loaded, mid, len(steps))
+            _assert_trees_equal(resumed, final, f"{fmt} resumed state")
+            _assert_trees_equal(resumed_results, results,
+                                f"{fmt} resumed results")
+
+        # the JAX package's checkpoint of the portrait camera run
+        path = os.path.join(tmp, "jax_mid.npz")
+        with open(path, "wb") as f:
+            f.write(host["checkpoint_npz"].tobytes())
+        state = ckpt.load_session_npz(path, device=dev)
+    inputs = _oriented_inputs(expiry, host, ORIENTED[0], dev)
+    after = len(inputs) - int(state.analytics.n_recorded.max())
+    if not 0 < after < len(inputs):
+        raise AssertionError(f"the fixture's checkpoint holds "
+                             f"{len(inputs) - after} of {len(inputs)} frames")
+    for planes, meta in inputs[-after:]:
+        state, _ = _oriented_step(port, params, state, ORIENTED[0], planes,
+                                  meta)
+    _compare_final(state, host, f"{ORIENTED[0]}_")
+    print(f"checkpoint: the {N_STREAMS}-stream full session stopped after "
+          f"{mid} of {len(steps)} frames, saved as .npz ({sizes['npz']} B) "
+          f"and with torch.save ({sizes['torch.save']} B), loaded to {dev} "
+          f"and continued: {len(_leaves(port, final))} state leaves and the "
+          f"results equal the uninterrupted run's bit for bit; the JAX "
+          f"package's checkpoint of the {ORIENTED[0]} camera run continues "
+          f"{after} frames to the recorded reads and analytics ring")
+
+
+def _camera_step_a_shard(port, params, states, shards, dev):
+    """The camera step has no sharded form of its own, as in the JAX
+    package: a full camera step on each shard of placed inputs. shards:
+    for each plane its list of shards. Returns (states, outputs) gathered
+    stream-major as make_sharded_step's step gathers them."""
+    from cardio_dmz_tpu_torch.parallel.mesh import gather_streams
+    from cardio_dmz_tpu_torch.parallel.streams import device_scope
+    outs = []
+    for k, state in enumerate(states):
+        with device_scope(dev):
+            states[k], res = port.batched_camera_step(
+                params, state, *(plane[k] for plane in shards),
+                scan_expiry=True)
+        outs.append(res)
+    return states, gather_streams(outs)
+
+
+def split_step_phase(port, kernels, params, expiry, dates, card, dev):
+    phase("17 split step")
+    from cardio_dmz_tpu_torch.parallel.mesh import gather_streams
+    streams, steps = _full_steps(expiry, dates, dev)
+    now = tuple(expiry["now"].tolist())
+    uneven = [N_STREAMS // 2 + 1, N_STREAMS - N_STREAMS // 2 - 1]  # 129 + 127
+    n_camera = 3
+    planes = [tuple(torch.from_numpy(p).to(dev) for p in paste_previews(
+        expiry["frames"][streams, t])) for t in range(n_camera)]
+    out = {}
+
+    def unsplit_run(step_fn, inputs):
+        reset_launches(kernels)
+        state = port.init_stream_states(N_STREAMS, dev, now)
+        ref = []
+        for x in inputs:
+            state, res = step_fn(state, x)
+            ref.append((state, res))
+        torch.cuda.synchronize()
+        return ref, read_launches(kernels)
+
+    def split_run(name, label, devices, sizes, scan_expiry, ref, unsplit,
+                  float_atol):
+        """make_sharded_step over `devices` against the unsplit run `ref`;
+        returns (largest float difference, step, states, place)."""
+        step, place, init = port.make_sharded_step(
+            params, devices, scan_expiry=scan_expiry, sizes=sizes)
+        reset_launches(kernels)
+        states = init(N_STREAMS, now)
+        worst = 0.0
+        for t, frames in enumerate(steps):
+            states, res = step(states, place(frames))
+            worst = max(worst, _assert_trees_equal(
+                gather_streams(states), ref[t][0],
+                f"{name} {label} step {t} state", float_atol),
+                _assert_trees_equal(res, ref[t][1],
+                                    f"{name} {label} step {t} results",
+                                    float_atol))
+        torch.cuda.synchronize()
+        launches = read_launches(kernels)
+        want = {k: v * len(devices) for k, v in unsplit.items()}
+        if launches != want:
+            raise AssertionError(f"{name} {label}: launches {launches}; "
+                                 f"want {want}")
+        out[f"{name} {label}"] = launches
+        return worst, step, states, place
+
+    for name, scan_expiry in (("PAN-only", False), ("full", True)):
+        def step_fn(state, frames):
+            return port.batched_scanner_step(params, state, frames,
+                                             scan_expiry=scan_expiry)
+
+        # the serving default: one product a call
+        ref, unsplit = unsplit_run(step_fn, steps)
+        ms = {"unsplit": host_ms(lambda: step_fn(ref[-1][0], steps[0]), 10)}
+        _, step, states, place = split_run(name, "[cuda:0]", [dev], None,
+                                           scan_expiry, ref, unsplit, 0.0)
+        placed = place(steps[0])
+        ms["[cuda:0]"] = host_ms(lambda: step(states, placed), 10)
+        drift, step, states, place = split_run(
+            name, "[cuda:0, cuda:0]", [dev, dev], uneven, scan_expiry, ref,
+            unsplit, SCORE_ATOL)
+        placed = place(steps[0])
+        ms["[cuda:0, cuda:0]"] = host_ms(lambda: step(states, placed), 10)
+        print(f"{name} step at {N_STREAMS} streams over {len(steps)} frames: "
+              f"the split over [cuda:0] equals the unsplit step bit for "
+              f"bit, states and results; over [cuda:0, cuda:0] as "
+              f"{uneven[0]} + {uneven[1]} every integer and bool leaf is "
+              f"equal and the float leaves differ by at most {drift:.3g} "
+              f"(the GEMMs pick their kernels by row count); launches "
+              f"unsplit {unsplit}, "
+              f"two shards {out[name + ' [cuda:0, cuda:0]']}; step ms "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + f"; card {card}")
+        out[f"{name} drift"] = drift
+
+    def camera_fn(state, frame):
+        return port.batched_camera_step(params, state, *frame,
+                                        scan_expiry=True)
+
+    ref, unsplit = unsplit_run(camera_fn, planes)
+    _, place, init = port.make_sharded_step(params, [dev, dev],
+                                            scan_expiry=True, sizes=uneven)
+    reset_launches(kernels)
+    states = init(N_STREAMS, now)
+    drift = 0.0
+    for t, frame in enumerate(planes):
+        states, res = _camera_step_a_shard(
+            port, params, states, [place(p) for p in frame], dev)
+        drift = max(drift, _assert_trees_equal(
+            gather_streams(states), ref[t][0], f"camera step {t} state",
+            SCORE_ATOL), _assert_trees_equal(
+                res, ref[t][1], f"camera step {t} results", SCORE_ATOL))
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    if launches != {k: 2 * v for k, v in unsplit.items()} or not all(
+            unsplit.values()):
+        raise AssertionError(f"camera step a shard: launches {launches}; "
+                             f"unsplit {unsplit}")
+    out["camera-full [cuda:0, cuda:0]"] = launches
+    out["camera-full drift"] = drift
+    print(f"full camera step a shard ({uneven[0]} + {uneven[1]} streams, "
+          f"{n_camera} frames): integer and bool leaves equal the unsplit "
+          f"step's, float leaves within {drift:.3g}; launches unsplit "
+          f"{unsplit}, two shards {launches}")
+    return out
+
+
+def serving_loop_phase(port, kernels, card, dev):
+    phase("18 serving loop")
+    from cardio_dmz_tpu_torch.tools import serve_demo
+    n_streams = 16
+    reset_launches(kernels)
+    counts = serve_demo.main(["--streams", str(n_streams), "--seconds", "3",
+                              "--fps", "30", "--devices", "cuda:0"])
+    launches = read_launches(kernels)
+    steps = counts.get("counter_steps", 0)
+    if counts["pans"] != counts["truth"]:
+        raise AssertionError(f"the serving loop read {counts['pans']}; the "
+                             f"cards are {counts['truth']}")
+    if (counts["counter_frames_fresh"] + counts.get("counter_frames_stale", 0)
+            != steps * n_streams or counts.get("counter_reads_mismatched")):
+        raise AssertionError(f"serving loop counters: {counts}")
+    if launches["digit_prep"] != steps + 1:        # + the warm-up step
+        raise AssertionError(f"{steps} serving steps launched {launches}")
+    print(f"serving loop on {dev}: {steps} steps in 3 s at {n_streams} "
+          f"streams of 30 frames/s, {counts['counter_frames_fresh']} fresh "
+          f"and {counts.get('counter_frames_stale', 0)} stale frames, "
+          f"{counts['completed']}/{n_streams} streams read their fixture "
+          f"PAN; step avg {1e3 * counts['timer_step_seconds_avg']:.3f} ms, "
+          f"acquire avg {1e3 * counts['timer_acquire_seconds_avg']:.3f} ms; "
+          f"launches {launches}; card {card}")
+    return {"launches": launches, "steps": steps}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "script runs only on an NVIDIA card")
     import cardio_dmz_tpu_torch as port
     from cardio_dmz_tpu_torch.ops.cuda import digit_prep, persp_qr, warp_gather
+    from cardio_dmz_tpu_torch.runtime import ingest
 
     kernels = {"digit_prep": digit_prep, "warp_gather": warp_gather,
                "persp_qr": persp_qr}
     dev = torch.device("cuda", 0)
     card = device_phase()
-    build_phase(kernels)
+    build_phase(kernels, ingest)
     fixture = load_npz(fixture_path(port, "smoke_session.npz"))
     measured = {"digit_prep": kernel_phase(port, digit_prep, fixture, dev)}
     params = models_phase(port, dev)
@@ -1295,6 +1903,13 @@ def main():
     full_serving_phase(port, kernels, params, expiry, dates, card, dev)
     full_camera_serving_phase(port, kernels, params, expiry, dates, card,
                               dev)
+    host = load_npz(fixture_path(port, "host_session.npz"))
+    host_scan = host_scanner_phase(port, kernels, params, expiry, host, card,
+                                   dev)
+    oriented = oriented_camera_phase(port, kernels, params, expiry, host, dev)
+    checkpoint_phase(port, kernels, params, expiry, host, dates, dev)
+    split = split_step_phase(port, kernels, params, expiry, dates, card, dev)
+    loop = serving_loop_phase(port, kernels, card, dev)
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -1302,6 +1917,11 @@ def main():
         "replaces": KERNELS[name][1],
         "launches": serving["launches"][name],
         "launches_scan_path": scan["launches"][name],
+        "launches_host_scanner_session": host_scan["launches"][name],
+        "launches_portrait_run": oriented["portrait"][name],
+        "launches_split_full_camera_run":
+            split["camera-full [cuda:0, cuda:0]"][name],
+        "launches_serving_loop": loop["launches"][name],
         **measured[name]} for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

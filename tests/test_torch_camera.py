@@ -1,7 +1,8 @@
 """The camera path as a whole: the port's detect_edges, preprocess_frame and
 batched_camera_step against the JAX package's, and the recorded camera
 fixture (cardio_dmz_tpu_torch/data/camera_session.npz) that chip_smoke.py
-replays on the card.
+replays on the card. (Orientations and camera metadata:
+tests/test_torch_camera_orient.py.)
 
 The JAX step runs jitted and vmapped over two streams (one compile, cached
 in torch_fixture). Its corners are asserted equal to the JAX package's run
@@ -240,3 +241,4 @@ def test_camera_fixture_through_port():
     assert [_pan(d, n) for d, n in zip(final.completed_digits,
                                        final.completed_n)] == [
         pan for pan, _ in fx.CAMERA_STREAMS]
+

@@ -255,7 +255,7 @@ def _random_lines(seed, n=64):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_parametric_intersect_matches_op_by_op_jax(seed):
     rh, th, rv, tv = _random_lines(seed)
-    ok, x, y = pgeom.parametric_intersect(rh, th, rv, tv)
+    ok, x, y = pgeom.parametric_intersect_torch(rh, th, rv, tv)
     with jax.disable_jit():
         rok, rx, ry = jgeom.parametric_intersect_jax(
             jnp.asarray(to_np(rh)), jnp.asarray(to_np(th)),
@@ -270,7 +270,8 @@ def test_parametric_intersect_matches_op_by_op_jax(seed):
 def test_line_by_shifting_origin_matches_op_by_op_jax(origin):
     rh, th, rv, tv = _random_lines(sum(origin))
     for rho, theta in ((rh, th), (rv, tv)):
-        got, got_theta = pgeom.line_by_shifting_origin(rho, theta, *origin)
+        got, got_theta = pgeom.line_by_shifting_origin_torch(
+            rho, theta, *origin)
         with jax.disable_jit():
             ref, _ = jgeom.line_by_shifting_origin_jax(
                 jnp.asarray(to_np(rho)), jnp.asarray(to_np(theta)), *origin)

@@ -6,6 +6,9 @@ These tests skip without a card. They import neither jax nor the JAX
 package, so they also run where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+The stream counts 1, 127 and 129 are the launch shapes of the single-stream
+HostScanner and of a 256-stream step split unevenly over two shards.
 """
 
 import os
@@ -77,7 +80,7 @@ def _strips(kind, n_streams, device):
 
 
 @pytest.mark.parametrize("kind", ["noise", "real", "equal"])
-@pytest.mark.parametrize("n_streams", [1, 256])
+@pytest.mark.parametrize("n_streams", [1, 127, 129, 256])
 def test_kernel_matches_plain(cuda_device, n_streams, kind):  # noqa: F811
     strips, offsets = _strips(kind, n_streams, cuda_device)
     before = digit_prep.LAUNCHES
@@ -91,15 +94,15 @@ def test_kernel_matches_plain(cuda_device, n_streams, kind):  # noqa: F811
 
 
 @pytest.mark.parametrize("dest", ["shared", "per_stream"])
-@pytest.mark.parametrize("n_streams", [1, 3, 255, 256, 257])
+@pytest.mark.parametrize("n_streams", [1, 3, 16, 127, 129, 255, 256, 257])
 def test_persp_kernel_matches_plain(cuda_device, n_streams,  # noqa: F811
                                     dest):
     """Bit for bit against the plain version on the card, NaN and inf
     included: the quads, then degenerate sets (all zero, a repeated
     corner, an inf and a NaN corner), with the card's destination for
     every stream or a rectangle a stream. With the degenerate sets the
-    kernel sees 5, 7, 259, 260 and 261 streams: each leaves the last
-    block (eight streams, two a warp) part full."""
+    kernel sees n_streams + 4 streams: each count leaves the last block
+    (eight streams, two a warp) part full."""
     quads = _quads("landscape", n_streams, n_streams)
     rep = quads[0].clone()
     rep[1] = rep[0]
@@ -126,7 +129,7 @@ def test_persp_kernel_matches_plain(cuda_device, n_streams,  # noqa: F811
 
 
 @pytest.mark.parametrize("orientation", ["landscape", "portrait"])
-@pytest.mark.parametrize("n_streams", [1, 256])
+@pytest.mark.parametrize("n_streams", [1, 127, 129, 256])
 def test_warp_kernel_matches_plain(cuda_device, n_streams,  # noqa: F811
                                    orientation):
     """The warp kernel, which computes the coordinate maps itself, u8 for
@@ -257,3 +260,20 @@ def test_expiry_stage_on_card_matches_cpu(cuda_device, stage):  # noqa: F811
     args = [torch.from_numpy(a) for a in args]
     for got, want in zip(fn(*(a.to(cuda_device) for a in args)), fn(*args)):
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("model", ["pan_conv_a", "expiry_conv", "vseg_mlp"])
+def test_products_on_card_across_batch_sizes(cuda_device, model):  # noqa: F811
+    """A row's scores in a batch of 4,096 rows, in the 2,064 and 2,032 rows
+    of an uneven split of 256 streams, and alone: within 1e-5 of each
+    other. They need not be the same bits, because the GEMM library picks
+    its kernel, and with it its summation order, by the call's row count."""
+    shape = {"pan_conv_a": (4096, 27, 19), "expiry_conv": (4096, 16, 11),
+             "vseg_mlp": (4096, 204)}[model]
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.rand(shape, device=cuda_device, generator=gen)
+    module = load_all_params(cuda_device)[model]
+    whole = module(x)
+    for n in (1, 16, 2032, 2064):
+        torch.testing.assert_close(module(x[:n].contiguous()), whole[:n],
+                                   atol=1e-5, rtol=0)

@@ -89,13 +89,21 @@ def _seg_cases():
         lines = synthetic.render_text_small(lines, "08/28 11/29", row, 40,
                                             size=15, spacing=13)
     cases.append(("dated_lines", lines, 125, True))
+    # uniform noise with the gate forced on, as the reference's bench steps
+    # it: every rect position is a candidate, so the 8 non-overlap rounds
+    # and the group and window caps truncate
+    noise = np.random.RandomState(5).randint(0, 256, (2, 270, 428)).astype(
+        np.uint8)
+    cases.append(("noise_y150", noise[0], 150, True))
+    cases.append(("noise_y125", noise[1], 125, True))
     names, frames, vseg_y, enabled = zip(*cases)
     return (names, np.stack(frames), np.asarray(vseg_y, np.int32),
             np.asarray(enabled))
 
 
 SEG_CASES = ("seed0", "seed1", "seed2", "gate_off", "text_heavy", "fuzzed0",
-             "fuzzed1", "fuzzed2", "fuzzed3", "dated_lines")
+             "fuzzed1", "fuzzed2", "fuzzed3", "dated_lines", "noise_y150",
+             "noise_y125")
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,8 +152,9 @@ def test_seg_finds_the_rendered_windows():
     tops = to_np(w.char_tops)[heavy][valid[heavy]]
     assert (lefts >= 0).all() and (lefts <= 428 - 11).all()
     assert (tops >= 0).all() and (tops <= 270 - 16).all()
-    assert to_np(w.top)[-1, :3].tolist() == [175, 205, 235]
-    assert valid[-1].tolist() == [True, True, True, False]
+    lines = SEG_CASES.index("dated_lines")
+    assert to_np(w.top)[lines, :3].tolist() == [175, 205, 235]
+    assert valid[lines].tolist() == [True, True, True, False]
 
 
 @pytest.mark.parametrize("case", range(len(SEG_CASES)), ids=SEG_CASES)
@@ -328,6 +337,59 @@ def test_full_step_matches_jax_vmap(step):
     assert_same(ref_frame, frame, atol=ATOL, rtol=1e-5)
     assert_same(ref_result, result)
     assert_same(ref_state, state, atol=ATOL)
+    np.testing.assert_allclose(to_np(scores), ref_scores, atol=ATOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _noise_frames():
+    """Three streams of 4 frames the bench's way: uniform noise; noise
+    below a rendered card's upper 190 rows, so that the vseg gate passes
+    and the expiry seg runs on noise; and the same with a dated line kept.
+    (3, 4, 270, 428) uint8."""
+    rng = np.random.RandomState(9)
+    noise = rng.randint(0, 256, (3, 4, 270, 428)).astype(np.uint8)
+    cards = fx.expiry_frames()
+    noise[1, :, :190] = cards[0, :4, :190]
+    noise[2, :, :232] = cards[1, :4, :232]
+    return noise
+
+
+@functools.lru_cache(maxsize=None)
+def _noise_runs():
+    """(the JAX package's run, the port's) of the full step over
+    _noise_frames(): per step (state, frame, result, window scores). The
+    JAX step is torch_fixture's jitted one, at its 3 streams."""
+    frames = _noise_frames()
+    state = fx._fresh_states(len(frames))
+    ref = []
+    for t in range(frames.shape[1]):
+        state, *rest = fx.jax_expiry_step()(state, frames[:, t])
+        ref.append(fx._np((state, *rest)))
+    state = init_stream_states(len(frames), "cpu", fx.NOW)
+    got = []
+    for t in range(frames.shape[1]):
+        y = torch.from_numpy(frames[:, t])
+        state, (frame, result) = batched_scanner_step(
+            port_params(), state, y, scan_expiry=True)
+        got.append((state, frame, result, tx.categorize_windows(
+            port_params()["expiry_conv"], y, frame.expiry_groups)))
+    return ref, got
+
+
+@pytest.mark.parametrize("step", range(4))
+def test_full_step_on_noise_matches_jax_vmap(step):
+    """The full step on noise frames, as the reference's bench steps them:
+    every discrete output of frame, result and state equal, scores within
+    1e-5, for all three streams: the pure-noise stream 0, which the vseg
+    gate refuses, included with its vseg and hseg fields."""
+    ref, got = _noise_runs()
+    ref_state, ref_frame, ref_result, ref_scores = ref[step]
+    state, frame, result, scores = got[step]
+    usable_vseg = np.asarray(ref_frame.vseg.score) > 15.0
+    assert usable_vseg.tolist() == [False, True, True]
+    assert_same(ref_frame, frame, atol=ATOL, rtol=1e-5)
+    assert_same(ref_result, result)
+    assert_same(ref_state, state, atol=ATOL, rtol=1e-5)
     np.testing.assert_allclose(to_np(scores), ref_scores, atol=ATOL)
 
 

@@ -1,6 +1,7 @@
 """The port runs with jax made unimportable, and never imports the JAX
 package: the PAN-only step, the camera step and both full (PAN + expiry)
-steps."""
+steps, and the host side: HostScanner, a checkpoint saved and loaded, the
+frame pump built and used, the step split over a device list."""
 
 import os
 import subprocess
@@ -35,6 +36,32 @@ assert frame.expiry_groups.valid.shape == (2, 4)
 states, (found, frame, result) = port.batched_camera_step(
     params, states, y, cb, cr, config=port.config.ScanConfig())
 assert states.scan_expiry.all() and result.expiry_month.shape == (2,)
+
+# the host side of serving
+import os, tempfile
+scanner = port.HostScanner(params, now=(2026, 1))
+frame, result = scanner.add_frame(frames[0].numpy())
+assert frame.scores.shape == (16, 10) and result.complete in (False, True)
+with tempfile.TemporaryDirectory() as tmp:
+    for name in ("state.npz", "state.pt"):
+        path = port.save_session(os.path.join(tmp, name), states) \
+            if name.endswith(".pt") else os.path.join(tmp, name)
+        if name.endswith(".npz"):
+            port.session.save_session_npz(path, states)
+        loaded = port.load_session(path, device="cpu")
+        assert torch.equal(loaded.analytics.vseg_y, states.analytics.vseg_y)
+pump = port.FramePump(2, frame_shape=(270, 428), device="cpu")
+pump.push(1, frames[1].numpy(), frame_id=7)
+batch, ids, fresh = pump.acquire_batch()
+assert fresh == 1 and ids[1] == 7 and torch.equal(batch[1], frames[1])
+pump.close()
+step, place, init = port.make_sharded_step(params, port.make_mesh(
+    ["cpu", "cpu"]))
+split_states, (frame, result) = step(init(2, (2026, 1)), place(batch))
+assert len(split_states) == 2 and result.complete.shape == (2,)
+assert all(port.models.self_check("cpu").values())
+assert port.blur_card(frames[0].numpy(), split_states[0]).shape == (270, 428)
+
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("cardio_dmz_tpu", "jaxlib"))
 assert not leaked, leaked

@@ -109,8 +109,10 @@ def test_batch_equals_single_frames():
 
 def test_scan_expiry_is_not_ported_yet():
     """The name is from before the expiry read was ported, when
-    scan_expiry=True raised; it now runs, changes nothing else of the
-    frame result, and a batch equals its single frames."""
+    scan_expiry=True raised, and is kept because renaming would drop a
+    test that has been counted. What it checks now: scan_expiry=True runs,
+    changes nothing else of the frame result, and a batch equals its
+    single frames."""
     params = port_params()
     frames = torch.from_numpy(_frames())
     batch = scan_card_image(params, frames, scan_expiry=True)

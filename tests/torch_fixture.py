@@ -26,13 +26,24 @@ their (4, 5, 10) scores, the expiry state and the date, and the final
 results. The writer asserts that the jitted windows equal the
 ones computed op by op.
 
-chip_smoke.py replays all three through the port on the card, where neither
+host_session.npz, the host side of serving (it holds results only: its
+frames are expiry_session.npz's cards): the JAX HostScanner's per-frame
+outputs and the host oracle's expiry groups over those three streams; two
+short camera runs of the first two cards with non-zero iso / shutter /
+torch metadata, on the portrait and on the landscape-left (upside-down)
+guide rect, through camera_scanner_step(orientation=...), with the final
+analytics rings (their corners are the detector's run op by op); and the
+portrait run's state after three frames as the bytes of a checkpoint
+written by the JAX package's save_session_npz.
+
+chip_smoke.py replays all four through the port on the card, where neither
 JAX nor the renderer is installed. Write the files anew with:
 
     python tests/torch_fixture.py
 """
 
 import functools
+import io
 import os
 import sys
 
@@ -46,6 +57,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import synthetic  # noqa: E402
 from cardio_dmz_tpu import api  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    ORIENTATIONS, group_rects, paste_previews)
 from cardio_dmz_tpu.constants import (  # noqa: E402
     LANDSCAPE_HORIZONTAL_INSET, LANDSCAPE_VERTICAL_INSET,
     ORIENTATION_LANDSCAPE_RIGHT)
@@ -61,6 +74,7 @@ _DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 FIXTURE = os.path.join(_DATA, "smoke_session.npz")
 CAMERA_FIXTURE = os.path.join(_DATA, "camera_session.npz")
 EXPIRY_FIXTURE = os.path.join(_DATA, "expiry_session.npz")
+HOST_FIXTURE = os.path.join(_DATA, "host_session.npz")
 NOW = (2026, 1)
 N_FRAMES = 6
 # (pan, y0, noise): two readable PANs, a wrong-Luhn PAN and an upside-down
@@ -475,10 +489,206 @@ def expiry_fixture_arrays():
     return out
 
 
+# --- the host side: HostScanner, oriented camera runs, a checkpoint --------
+
+ORIENTED = ("portrait", "landscape_left")    # names of chip_smoke.ORIENTATIONS
+ORIENTED_STREAMS = 2          # the first two cards of expiry_frames()
+ORIENTED_FRAMES = 8
+CHECKPOINT_AFTER = 3          # frames of the portrait run before the save
+
+
+def camera_metadata(n_streams, n_frames):
+    """Non-zero camera metadata for every stream and frame: iso (S, T)
+    int32, shutter (S, T) f32, torch (S, T) bool."""
+    s = np.arange(n_streams)[:, None]
+    t = np.arange(n_frames)[None, :]
+    return ((100 + 50 * s + t).astype(np.int32),
+            (0.01 * (t + 1) + s).astype(np.float32),
+            (s + t) % 2 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def oriented_camera_frames(orientation):
+    """The first ORIENTED_STREAMS cards of expiry_frames() on an
+    orientation's guide rect: Y (S, T, 480, 640), Cb and Cr (S, T, 240,
+    320), all uint8."""
+    cards = expiry_frames()[:ORIENTED_STREAMS, :ORIENTED_FRAMES]
+    return paste_previews(cards, orientation=orientation)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_oriented_camera_step(orientation):
+    """The JAX package's camera step at an orientation, with the camera
+    metadata, vmapped over streams and jitted: (state, y, cb, cr, iso,
+    shutter, torch) -> (state, found, frame, result, card). (The corners
+    are taken op by op, op_by_op_corners: a second detector in this graph
+    would only add to its compile.)"""
+    params = load_all_params()
+    value = ORIENTATIONS[orientation]
+
+    def step(state, y, cb, cr, iso, shutter, torch_on):
+        _, card = api.preprocess_frame(y, cb, cr, value)
+        state, (found, frame, result) = camera_scanner_step(
+            params, state, y, cb, cr, orientation=value, iso_speed=iso,
+            shutter_speed=shutter, torch_is_on=torch_on)
+        return state, found, frame, result, card
+    return jax.jit(jax.vmap(step))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_oriented_camera_session(orientation):
+    """jax_oriented_camera_step over oriented_camera_frames(): one (state,
+    found, frame, result, card) per step, as numpy."""
+    y, cb, cr = oriented_camera_frames(orientation)
+    iso, shutter, torch_on = camera_metadata(*y.shape[:2])
+    step = jax_oriented_camera_step(orientation)
+    state = _fresh_states(len(y))
+    out = []
+    for t in range(y.shape[1]):
+        state, *rest = step(state, y[:, t], cb[:, t], cr[:, t], iso[:, t],
+                            shutter[:, t], torch_on[:, t])
+        out.append(_np((state, *rest)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def oriented_op_by_op_corners(orientation):
+    """The detector's corners over oriented_camera_frames(), run op by op:
+    (S, T, 4, 2). That is what the port computes; on the portrait rect the
+    jitted XLA:CPU graph contracts a multiply-add of the intersection and
+    differs in the last bit, so the fixture keeps these and, for
+    everything else, the jitted step's results."""
+    y, cb, cr = oriented_camera_frames(orientation)
+    return op_by_op_corners(
+        y.reshape(-1, 480, 640), cb.reshape(-1, 240, 320),
+        cr.reshape(-1, 240, 320), ORIENTATIONS[orientation]).reshape(
+        y.shape[:2] + (4, 2))
+
+
+def oriented_homographies(corners, orientation):
+    """The JAX package's homography for (..., 4, 2) corners in tl, tr, bl,
+    br order, taken in the orientation's corner order (api._CORNER_ORDER),
+    as it computes it off the TPU (persp_host)."""
+    names = ("tl", "tr", "bl", "br")
+    order = [names.index(k)
+             for k in api._CORNER_ORDER[ORIENTATIONS[orientation]]]
+    return homographies(corners[..., order, :])
+
+
+def jax_checkpoint_bytes(state):
+    """A (stream-batched) JAX ScannerState as the bytes of the .npz that
+    the JAX package's save_session_npz writes."""
+    from cardio_dmz_tpu.session.checkpoint import save_session_npz
+    buffer = io.BytesIO()
+    save_session_npz(buffer, state)
+    return np.frombuffer(buffer.getvalue(), np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_host_scanner():
+    """One JAX HostScanner: its jitted PAN step compiles once. Callers set
+    its attributes and reset() it."""
+    from cardio_dmz_tpu.session.host import HostScanner
+    return HostScanner(load_all_params(), scan_expiry=True, now=NOW)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_host_sessions():
+    """The JAX HostScanner over each stream of expiry_frames(), and the
+    host oracle's groups of every frame at the vseg row the scanner found:
+    {key: (S, T, ...) array}."""
+    from cardio_dmz_tpu.scan.expiry_seg_host import best_expiry_seg
+    scanner = jax_host_scanner()
+    scanner.scan_expiry, scanner.allow_past_dates = True, False
+    scanner.collect_name_groups = False
+    slash = load_all_params()["slash_mlp"]
+    keys = ("usable", "vseg_y_offset", "vseg_pattern_type", "hseg_n_offsets",
+            "hseg_offsets", "complete", "predictions", "expiry_month",
+            "expiry_year", "state_month", "state_year", "n_groups",
+            "group_tops", "group_lefts")
+    out = {k: [] for k in keys}
+    for stream in expiry_frames():
+        scanner.reset()
+        rows = {k: [] for k in keys}
+        for y in stream:
+            frame, result = scanner.add_frame(y)
+            n, tops, lefts = group_rects(best_expiry_seg(
+                y, int(frame.vseg.y_offset), slash)[0])
+            for k, v in (
+                    ("usable", frame.usable),
+                    ("vseg_y_offset", frame.vseg.y_offset),
+                    ("vseg_pattern_type", frame.vseg.pattern_type),
+                    ("hseg_n_offsets", frame.hseg.n_offsets),
+                    ("hseg_offsets", frame.hseg.offsets),
+                    ("complete", result.complete),
+                    ("predictions", result.predictions),
+                    ("expiry_month", result.expiry_month),
+                    ("expiry_year", result.expiry_year),
+                    ("state_month", scanner.expiry_month),
+                    ("state_year", scanner.expiry_year),
+                    ("n_groups", n), ("group_tops", tops),
+                    ("group_lefts", lefts)):
+                rows[k].append(np.asarray(v))
+        for k in keys:
+            out[k].append(np.stack(rows[k]))
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+def host_fixture_arrays():
+    """What host_session.npz holds, computed now from the JAX package."""
+    from cardio_dmz_tpu.session.analytics import ScanAnalytics
+    out = {"now": np.asarray(NOW, np.int32)}
+    out.update({f"host_{k}": v for k, v in jax_host_sessions().items()})
+    iso, shutter, torch_on = camera_metadata(ORIENTED_STREAMS,
+                                             ORIENTED_FRAMES)
+    out.update(iso_speed=iso, shutter_speed=shutter, torch_is_on=torch_on)
+    for orientation in ORIENTED:
+        run = jax_oriented_camera_session(orientation)
+
+        def per_frame(get):
+            return np.stack([np.asarray(get(r)) for r in run], axis=1)
+
+        corners = oriented_op_by_op_corners(orientation)
+        final = run[-1][0]
+        arrays = {
+            "found": per_frame(lambda r: r[1]),
+            "corners": corners,
+            "homography": oriented_homographies(corners, orientation),
+            # the rectified cards of the first and the last frame
+            "card": per_frame(lambda r: r[4])[:, [0, -1]],
+            "vseg_y_offset": per_frame(lambda r: r[2].vseg.y_offset),
+            "hseg_n_offsets": per_frame(lambda r: r[2].hseg.n_offsets),
+            "hseg_offsets": per_frame(lambda r: r[2].hseg.offsets),
+            "usable": per_frame(lambda r: r[2].usable),
+            "scores": per_frame(lambda r: r[2].scores),
+            "focus_score": per_frame(lambda r: r[2].focus_score),
+            "brightness_score": per_frame(lambda r: r[2].brightness_score),
+            "frame_iso_speed": per_frame(lambda r: r[2].iso_speed),
+            "frame_shutter_speed": per_frame(lambda r: r[2].shutter_speed),
+            "frame_torch_is_on": per_frame(lambda r: r[2].torch_is_on),
+            "number_complete": final.number_complete,
+            "completed_digits": final.completed_digits,
+            "completed_n": final.completed_n,
+        }
+        arrays.update({f"analytics_{k}": getattr(final.analytics, k)
+                       for k in ScanAnalytics._fields})
+        out.update({f"{orientation}_{k}": v for k, v in arrays.items()})
+    mid = jax_oriented_camera_session(ORIENTED[0])[CHECKPOINT_AFTER - 1][0]
+    out["checkpoint_npz"] = jax_checkpoint_bytes(mid)
+    return out
+
+
+def checkpoint_leaves(npz_bytes):
+    """The arrays of a checkpoint held as bytes, in order."""
+    with np.load(io.BytesIO(np.asarray(npz_bytes).tobytes())) as data:
+        return [data[f"arr_{i}"] for i in range(len(data.files))]
+
+
 if __name__ == "__main__":
     os.makedirs(_DATA, exist_ok=True)
     for path, arrays in ((FIXTURE, fixture_arrays),
                          (CAMERA_FIXTURE, camera_fixture_arrays),
-                         (EXPIRY_FIXTURE, expiry_fixture_arrays)):
+                         (EXPIRY_FIXTURE, expiry_fixture_arrays),
+                         (HOST_FIXTURE, host_fixture_arrays)):
         np.savez_compressed(path, **arrays())
         print(f"wrote {path} ({os.path.getsize(path)} bytes)")
