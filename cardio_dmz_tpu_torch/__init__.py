@@ -31,11 +31,17 @@ And the host side of serving around them:
   split over a list of devices;
 * tools/serve_demo.py: camera threads -> FramePump -> the split step ->
   Metrics.
+
+And training: train/ (the synthetic generators, with the glyphs from a
+table instead of PIL; the trainable model forms of models/zoo.py; fit,
+with Adam, over a mesh's data and model axes) and tools/train_models.py;
+entry.py holds the counterparts of __graft_entry__.py (entry,
+dryrun_multichip).
 """
 
 from . import (  # noqa: F401
     api, config, constants, models, ops, parallel, runtime, scan, session,
-    tools, utils)
+    tools, train, utils)
 from .api import blur_card  # noqa: F401
 from .models import load_all_params  # noqa: F401
 from .parallel import (  # noqa: F401

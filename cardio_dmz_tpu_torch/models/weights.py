@@ -17,21 +17,25 @@ PARAM_DIR = os.path.join(
         __file__)))), "cardio_dmz_tpu", "models", "params")
 
 _MLP_KEYS = ("hidden_w", "hidden_b", "logistic_w", "logistic_b")
+_PAN_CONV = (PanConv, ("conv_w", "conv_b") + _MLP_KEYS)
 # model name -> (module, its constructor's arrays in order)
 _MODELS = {
     "vseg_mlp": (Mlp, _MLP_KEYS),
     "slash_mlp": (SlashMlp, _MLP_KEYS),
-    "pan_conv_a": (PanConv, ("conv_w", "conv_b") + _MLP_KEYS),
-    "pan_conv_b": (PanConv, ("conv_w", "conv_b") + _MLP_KEYS),
-    "pan_conv_c": (PanConv, ("conv_w", "conv_b") + _MLP_KEYS),
+    "pan_conv_a": _PAN_CONV,
+    "pan_conv_b": _PAN_CONV,
+    "pan_conv_c": _PAN_CONV,
     "expiry_conv": (ExpiryConv, ("conv1_w", "conv1_b", "conv2_w", "conv2_b")
                     + _MLP_KEYS),
 }
 # The models of the scan: the PAN path's, the slash MLP and the expiry conv.
 MODEL_NAMES = tuple(_MODELS)
+# ... and the names a file of retrained parameters may carry besides:
+# tools/train_models.py trains one PAN conv, "pan_conv", an ensemble member.
+_ARCHITECTURES = dict(_MODELS, pan_conv=_PAN_CONV)
 # model name -> the names of its arrays, as the npz files and the modules'
 # buffers carry them
-MODEL_ARRAYS = {name: keys for name, (_, keys) in _MODELS.items()}
+MODEL_ARRAYS = {name: keys for name, (_, keys) in _ARCHITECTURES.items()}
 
 
 def load_np(name, include_test_vectors=False):
@@ -43,8 +47,13 @@ def load_np(name, include_test_vectors=False):
 
 
 def module_from_numpy(name, arrays, device):
-    """One model's module on `device` from its {array name: numpy array}."""
-    module, keys = _MODELS[name]
+    """One model's module on `device` from its {array name: numpy array}:
+    a model of the scan (MODEL_NAMES) or a retrained "pan_conv". Raises
+    ValueError for another name."""
+    if name not in _ARCHITECTURES:
+        raise ValueError(f"unknown model {name!r}; the port builds "
+                         f"{sorted(_ARCHITECTURES)}")
+    module, keys = _ARCHITECTURES[name]
     return module(*(torch.tensor(np.asarray(arrays[k]), dtype=torch.float32,
                                  device=device) for k in keys))
 

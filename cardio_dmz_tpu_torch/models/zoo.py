@@ -15,10 +15,15 @@ Counterparts of the JAX package's models/zoo.py:
 Weights are buffers, not parameters: nothing on the serving path takes a
 gradient. The products go to torch.matmul, as the JAX package leaves them
 to XLA.
+
+Training takes the trainable forms instead (`apply_mlp`, `apply_pan_conv`,
+`apply_expiry_conv`): plain functions of a dict of tensors, the JAX
+package's functions of the same names in their conv form, differentiable.
 """
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # Full-f32 products everywhere in the port: TF32 keeps about three decimal
@@ -225,3 +230,89 @@ def pan_digit_scores(model_a, model_b, model_c, img):
     r0, r1, r2 = model_a(img), model_b(img), model_c(img)
     rmax = torch.maximum(torch.maximum(r0, r1), r2)
     return (r0 + r1 + r2 - rmax) / 2.0
+
+
+# --- the trainable forms -------------------------------------------------
+# A tie's gradient is split as JAX splits it: max pools by amax (shared
+# evenly among the tied inputs) and ReLUs by torch.maximum against a zero
+# tensor (half each way at 0); torch.relu, max(dim) and F.max_pool2d give
+# all of it to one side.
+
+def _affine(params, x, name):
+    """x @ w.T + b for the layer `name` ("hidden", "logistic"), or the
+    caller's own product of the layer where params holds a callable under
+    `name` (the trainer's column-parallel hidden layer)."""
+    if name in params:
+        return params[name](x)
+    return torch.matmul(x, params[f"{name}_w"].T) + params[f"{name}_b"]
+
+
+def _relu(x):
+    return torch.maximum(x, x.new_zeros(()))
+
+
+def _conv2d(x, w):
+    """Valid 2-D correlation of x (N, C, H, W) with w (O, C, kh, kw) as one
+    f32 GEMM (TF32 off) of the input's patches against the weights, in
+    forward and backward alike. The patches are a strided view of x
+    (Tensor.unfold), laid out by one copy whatever N is. cuDNN picks its
+    convolution algorithms itself, and on an H100 its weight gradient of
+    the expiry conv was off from XLA's by up to 2.2e-05, TF32 off; F.unfold
+    and cuDNN-less F.conv2d launch an im2col kernel a sample."""
+    o, c, kh, kw = w.shape
+    patches = x.unfold(2, kh, 1).unfold(3, kw, 1)   # (N, C, Ho, Wo, kh, kw)
+    n, _, ho, wo = patches.shape[:4]
+    cols = patches.permute(0, 2, 3, 1, 4, 5).reshape(n * ho * wo, c * kh * kw)
+    out = torch.matmul(cols, w.reshape(o, c * kh * kw).T)
+    return out.reshape(n, ho, wo, o).permute(0, 3, 1, 2)
+
+
+def apply_mlp(params, x):
+    """The vseg (204->50->3) and slash (176->80->2) MLP on a dict of
+    tensors. x: (..., n_in) float32 -> (..., n_out) probabilities."""
+    h = _tanh(_affine(params, x, "hidden"))
+    return torch.softmax(_affine(params, h, "logistic"), dim=-1)
+
+
+def apply_pan_conv(params, img):
+    """The PAN digit conv on a dict of tensors: the 3x3 valid correlation
+    truncated to 24x15, 3x3 max pool, bias + tanh, 320 -> 32 tanh -> 10
+    softmax. img: (..., 27, 19) float32 -> (..., 10)."""
+    if img.shape[-2:] != (27, 19):
+        raise ValueError(
+            f"PAN digit cell must be (..., 27, 19) (H, W); got "
+            f"{tuple(img.shape)}")
+    batch_shape = img.shape[:-2]
+    x = img.reshape(-1, 1, 27, 19)
+    conv = _conv2d(x, params["conv_w"][:, None])[:, :, :24, :15]
+    n = conv.shape[0]
+    pooled = conv.reshape(n, 8, 8, 3, 5, 3).amax((3, 5))    # (N, 8, 8, 5)
+    act = _tanh(pooled + params["conv_b"][None, :, None, None])
+    h = _tanh(_affine(params, act.reshape(n, 320), "hidden"))
+    logits = _affine(params, h, "logistic")
+    return torch.softmax(logits, dim=-1).reshape(batch_shape + (10,))
+
+
+def apply_expiry_conv(params, img):
+    """The expiry digit conv on a dict of tensors: mean-subtracted input,
+    conv1 a full 5x5 correlation (padding (4, 4) rows, (4, 3) columns) to
+    20x14, 2x2 pool, bias + ReLU; conv2 valid to 6x3, 2x3 pool, bias +
+    ReLU; 120 -> 176 ReLU -> 10 softmax. img: (..., 16, 11) -> (..., 10)."""
+    if img.shape[-2:] != (16, 11):
+        raise ValueError(
+            f"expiry digit cell must be (..., 16, 11) (H, W); got "
+            f"{tuple(img.shape)}")
+    batch_shape = img.shape[:-2]
+    x = img.reshape(-1, 16, 11)
+    x = x - x.mean(dim=(-1, -2), keepdim=True)
+    c1 = _conv2d(F.pad(x[:, None], (4, 3, 4, 4)),
+                 params["conv1_w"][:, None])                 # (N, 50, 20, 14)
+    n = c1.shape[0]
+    p1 = c1.reshape(n, 50, 10, 2, 7, 2).amax((3, 5))
+    a1 = _relu(p1 + params["conv1_b"][None, :, None, None])
+    c2 = _conv2d(a1, params["conv2_w"])                      # (N, 40, 6, 3)
+    p2 = c2.reshape(n, 40, 3, 2, 1, 3).amax((3, 5)).reshape(n, 40, 3)
+    a2 = _relu(p2 + params["conv2_b"][None, :, None])
+    h = _relu(_affine(params, a2.reshape(n, 120), "hidden"))
+    logits = _affine(params, h, "logistic")
+    return torch.softmax(logits, dim=-1).reshape(batch_shape + (10,))

@@ -5,7 +5,8 @@ from .morph import morph_grad3_1d_u8, morph_grad3_2d_cross_u8  # noqa: F401
 from .stats import brightness_mean, equalize_hist, stddev_of_abs  # noqa: F401
 from .filter import bilateral3x3, median_blur  # noqa: F401
 from .select import window_select  # noqa: F401
-from .sobel import sobel3_dx_dy, sobel7  # noqa: F401
+from .sobel import (  # noqa: F401
+    scharr3_dx_abs, scharr3_dy_abs, sobel3_dx_dy, sobel7)
 from .canny import (  # noqa: F401
     adaptive_canny7, canny7, canny7_precomputed_sobel)
 from .hough import hough_best_line  # noqa: F401

@@ -1,9 +1,11 @@
 """Sobel derivatives on u8 images (cv/sobel.cpp equivalents).
 
 Counterpart of the JAX package's ops/sobel.py: the separable 7x7 Sobel
-with replicate borders and int16 saturation (llcv_sobel7) and the 3x3
-cross derivative of the focus score (llcv_sobel3_dx_dy). Integer
-arithmetic throughout, so the results equal the JAX package's exactly.
+with replicate borders and int16 saturation (llcv_sobel7), the 3x3
+cross derivative of the focus score (llcv_sobel3_dx_dy) and the |d/dx|,
+|d/dy| Scharr of the slash model's training crops (llcv_scharr3_*_abs).
+Integer arithmetic throughout, so the results equal the JAX package's
+exactly.
 Leading dims are batch dims.
 """
 
@@ -56,3 +58,33 @@ def sobel3_dx_dy(x):
     xp = xi.index_select(-2, rows).index_select(-1, cols)
     up, dn = xp[..., :h, :], xp[..., 2:, :]
     return (up[..., :w] - up[..., 2:]) - (dn[..., :w] - dn[..., 2:])
+
+
+def _clamped_neighbours(x, dim):
+    """(previous, next) along `dim`, each with the border sample repeated."""
+    n = x.shape[dim]
+    idx = torch.arange(n, device=x.device)
+    return (x.index_select(dim, (idx - 1).clamp(0, n - 1)),
+            x.index_select(dim, (idx + 1).clamp(0, n - 1)))
+
+
+def scharr3_dx_abs(x):
+    """|d/dx| Scharr, llcv_scharr3_dx_abs (cv/sobel.cpp:700-830). The
+    reference's quirk is kept: abs of the horizontal central difference
+    first, then the vertical (3, 10, 3) smoothing (smooth-of-abs, not
+    abs-of-scharr). Borders clamp.
+    x: (..., H, W) uint8 -> (..., H, W) int32."""
+    left, right = _clamped_neighbours(x.to(torch.int32), -1)
+    d = (right - left).abs()
+    up, dn = _clamped_neighbours(d, -2)
+    return 3 * (up + dn) + 10 * d
+
+
+def scharr3_dy_abs(x):
+    """|d/dy| Scharr, llcv_scharr3_dy_abs (cv/sobel.cpp:838-905): abs of the
+    vertical central difference, then the horizontal (3, 10, 3) smoothing.
+    x: (..., H, W) uint8 -> (..., H, W) int32."""
+    up, dn = _clamped_neighbours(x.to(torch.int32), -2)
+    d = (dn - up).abs()
+    left, right = _clamped_neighbours(d, -1)
+    return 3 * (left + right) + 10 * d

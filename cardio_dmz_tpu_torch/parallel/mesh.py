@@ -43,6 +43,16 @@ def as_device(device):
     return device
 
 
+def require_cuda(what):
+    """The current CUDA device, for an entry point whose default is the
+    card; RuntimeError naming `what` when there is none: the port never
+    falls back to the CPU unless it is named."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: no CUDA device; name the device(s) to "
+                           f"use, for example 'cpu'")
+    return as_device("cuda")
+
+
 def make_mesh(devices=None, model_parallel=1) -> Mesh:
     """A (data, model) mesh over `devices`; every CUDA device when None
     (there is no CPU default: name "cpu" to get it). model_parallel=1 is
@@ -50,9 +60,7 @@ def make_mesh(devices=None, model_parallel=1) -> Mesh:
     are far too small to shard. A device may be named more than once; its
     shards then run one after another on it."""
     if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("make_mesh: no CUDA device; pass the devices "
-                               "to use, for example ['cpu']")
+        require_cuda("make_mesh")
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     devices = [as_device(d) for d in devices]

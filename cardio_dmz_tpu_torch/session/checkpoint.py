@@ -135,20 +135,28 @@ def load_session(path, like=None, *, device):
 
 
 def save_params(path, params):
-    """Persist the models' arrays as one .npz with the JAX package's
-    "model/key" names. They are the arrays each module was built from
-    (its persistent buffers), not the matrices folded from them."""
+    """Persist models' arrays as one .npz with the JAX package's
+    "model/key" names. params: {model name: nn.Module}, whose arrays are
+    the ones it was built from (its persistent buffers, not the matrices
+    folded from them), or {model name: {array name: tensor or array}}, a
+    trainer's output (train.fit)."""
     flat = {}
-    for model, module in params.items():
-        for key in MODEL_ARRAYS[model]:
-            flat[f"{model}/{key}"] = getattr(module, key).detach().cpu(
-                ).numpy()
+    for model, value in params.items():
+        if isinstance(value, torch.nn.Module):
+            value = {key: getattr(value, key) for key in MODEL_ARRAYS[model]}
+        for key, array in value.items():
+            if torch.is_tensor(array):
+                array = array.detach().cpu().numpy()
+            flat[f"{model}/{key}"] = np.asarray(array)
     np.savez_compressed(path, **flat)
 
 
 def load_params_npz(path, *, device):
     """{model name: module on `device`} from save_params's file, of this or
-    of the JAX package."""
+    of the JAX package: the scan's models (models.weights.MODEL_NAMES) and
+    the retrained "pan_conv", "vseg_mlp", "slash_mlp" and "expiry_conv"
+    that tools/train_models.py writes. Another model name raises
+    ValueError."""
     arrays = {}
     with np.load(path) as data:
         for key in data.files:
@@ -156,4 +164,3 @@ def load_params_npz(path, *, device):
             arrays.setdefault(model, {})[k] = data[key]
     return {model: module_from_numpy(model, a, device)
             for model, a in arrays.items()}
-

@@ -1,8 +1,9 @@
-"""Drive the PyTorch port's serving paths once on one NVIDIA card: the
-PAN-only step on rectified cards, the camera step in front of it, both
-with the in-graph expiry read (the full steps), and the host side of
-serving around them: the single-stream HostScanner, checkpoints, the step
-split over a device list, and the serving loop behind the frame pump.
+"""Drive the PyTorch port's paths once on one NVIDIA card: the PAN-only
+step on rectified cards, the camera step in front of it, both with the
+in-graph expiry read (the full steps), the host side of serving around
+them (the single-stream HostScanner, checkpoints, the step split over a
+device list, the serving loop behind the frame pump), training, and the
+entry hooks (entry, dryrun_multichip).
 
     python3 chip_smoke.py            (from the repo root, on a CUDA machine)
 
@@ -16,7 +17,7 @@ without printing its last line:
             256 streams x 16 cells on uniform-noise strips, on the PAN
             strips of the recorded fixture frames (through vseg and hseg)
             and on an all-equal strip (every gradient 0), and on the first
-            1, 2, 3, 16, 127 and 129 streams of each (STREAM_COUNTS: the
+            1, 2, 3, 4, 16, 127 and 129 streams of each (STREAM_COUNTS: the
             stream counts of the later phases); kernel times on each set at
             256 streams, the plain version's on the real strips
 4. models   the reference's golden vectors on the card, at 1e-5
@@ -31,7 +32,7 @@ without printing its last line:
             step ms, peak memory and a per-stage split
 7. persp    persp-QR kernel == its plain version, bit for bit and NaN
             included, on 256 detector-realistic corner sets and an all-zero
-            one, and at 1, 2, 3, 16, 127, 129, 255, 256 and 257 streams
+            one, and at 1, 2, 3, 4, 16, 127, 129, 255, 256 and 257 streams
             (degenerate sets
             first: all zero, a repeated, an inf and a NaN corner) with the
             card's destination and with a rectangle a stream; kernel, plain
@@ -43,7 +44,7 @@ without printing its last line:
             == its plain route (float64 maps, then the gather), u8 for u8,
             on 256 uniform-noise frames through envelope quads, landscape
             and portrait, and on a NaN homography (all-zero corners), and
-            at 1, 2, 3, 16, 127 and 129 of those streams, the NaN one among
+            at 1, 2, 3, 4, 16, 127 and 129 of those streams, the NaN one among
             them; kernel times at 256 streams
 9. camera   the recorded camera sessions (data/camera_session.npz, written
             from the JAX package by tests/torch_fixture.py) through
@@ -118,6 +119,29 @@ without printing its last line:
             -> Metrics, for 3 s: every stream's accepted read is its
             fixture PAN, fresh + stale frames = steps x streams; the
             metrics text is printed
+19. train   for each of the four architectures of tools/train_models.py,
+            against data/train_session.npz (written from the JAX package by
+            tests/torch_fixture.py): the port's generators, with `import
+            PIL` made to fail, make the JAX generators' three seed-0
+            batches bit for bit; from the JAX initial parameters on the
+            card, the loss within 1e-5 relative and the gradients within
+            1e-5 or 1e-4 of their size; a three-step fit's losses within
+            1e-5 and its parameters within 1e-5 (1e-4 where the first
+            gradient is below 2e-7: FIT_ATOL), with the elements under
+            2e-7 counted a parameter; train_one clears the JAX
+            tests' held-out floors (PAN 0.8 after 100 steps, vseg 0.9,
+            slash 0.95, expiry 0.9 after 120); the retrained parameters
+            saved and loaded into the serving modules give the trainable
+            form's outputs within 1e-5; ms a train step at batch 64 (and
+            4096 for the PAN conv) with its device time and operations;
+            no serving kernel launched
+20. entry   entry() on the card equals the JAX entry()'s outputs (usable and
+            y_offset exact, scores within 1e-5; the fixture); then
+            dryrun_multichip(4) over four copies of cuda:0 (a 2 x 2 mesh,
+            so the column-parallel hidden layer runs): a finite training
+            loss, the serving and the camera step a shard; the three
+            kernels' launches in it, exactly digit prep twice and the warp
+            and persp QR once a data group
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times from
 kernel_ms: many calls captured in one CUDA graph and replayed, so the
@@ -131,8 +155,10 @@ on the camera serving path (and on the PAN-only one), its largest
 difference from the plain version, its time, the plain version's and one
 PyTorch call's where one computes the same function, and its bound: the
 larger of the bytes it must move over the card's memory rate and its
-operations over the card's peak rate. The last line is {"ok": true, "device": {...}}. Needs no network and no JAX; builds
-into cardio_dmz_tpu_torch/_build/.
+operations over the card's peak rate; and its launches in phase 20's
+entry() and dry run. The last line is {"ok": true, "device": {...}}.
+Needs no network, no JAX and no PIL; builds into
+cardio_dmz_tpu_torch/_build/.
 """
 
 import json
@@ -142,16 +168,17 @@ import subprocess
 import sys
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 
 N_STREAMS = 256          # the serving shape of tools/bench.py
 # every stream count at which a later phase launches a kernel: HostScanner
-# (1), the fixture sessions (2, 3), the serving loop (16), the uneven split
-# (127, 129) and the serving shape; each kernel is held against its plain
-# version at each of them
-STREAM_COUNTS = (1, 2, 3, 16, 127, 129, N_STREAMS)
+# (1), the fixture sessions (2, 3), entry() and the dry run's shards (4), the
+# serving loop (16), the uneven split (127, 129) and the serving shape; each
+# kernel is held against its plain version at each of them
+STREAM_COUNTS = (1, 2, 3, 4, 16, 127, 129, N_STREAMS)
 WARMUP, STEPS = 3, 20
 KERNEL_REPS = 50
 SCORE_ATOL = 1e-5        # the reference's golden tolerance
@@ -1869,6 +1896,256 @@ def serving_loop_phase(port, kernels, card, dev):
     return {"launches": launches, "steps": steps}
 
 
+# --- 19 train -------------------------------------------------------------
+
+TRAIN_MODELS = ("pan_conv", "vseg_mlp", "slash_mlp", "expiry_conv")
+TRAIN_LR = 3e-3            # the fixture's fit, tools/train_models.py's default
+TRAIN_BATCH = 64
+# steps and held-out accuracy floor of each architecture
+# (tests/test_parallel_train.py:117-132)
+TRAIN_FLOORS = {"pan_conv": (100, 0.8), "vseg_mlp": (120, 0.9),
+                "slash_mlp": (120, 0.95), "expiry_conv": (120, 0.9)}
+LOSS_RTOL = 1e-5
+GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
+# A three-step Adam fit: a parameter moves by up to lr a step whatever its
+# gradient's size, as m / (sqrt(v) + eps); where the gradient is near 0 its
+# rounding noise (another summation order than XLA's) is a larger share of
+# it and moves the update, so the fit is held to FIT_ATOL where the first
+# step's gradient is at least FIT_SMALL_GRAD and to FIT_SMALL_GRAD_ATOL
+# elsewhere. On an H100 an element of the expiry conv's conv2_w whose first
+# gradient is 1.08e-07 ends 1.01e-05 from the JAX fit, and every element
+# with a first gradient of at least 2e-7 within 1.51e-06; of the fixture's
+# elements under 2e-7, 4,933 of 4,965 have a gradient of exactly 0 (the
+# expiry conv's dead ReLU units).
+FIT_ATOL, FIT_SMALL_GRAD_ATOL, FIT_SMALL_GRAD = 1e-5, 1e-4, 2e-7
+SERVING_BATCH = N_STREAMS * 16      # the PAN conv's cells at 256 streams
+
+
+def train_run(fixture, model):
+    """One architecture's arrays of data/train_session.npz, "<model>/"
+    stripped from their names."""
+    prefix = model + "/"
+    return {k[len(prefix):]: v for k, v in fixture.items()
+            if k.startswith(prefix)}
+
+
+def run_params(run, prefix, dev):
+    """{key: tensor on dev} of the run's "<prefix>/<key>" arrays."""
+    return {k.split("/", 1)[1]: torch.tensor(v, device=dev)
+            for k, v in run.items() if k.startswith(prefix + "/")}
+
+
+def check_train_batches(port_data_fn, run):
+    """The port's generator at seed 0 makes the fixture's three batches
+    (the JAX package's), bit for bit, with PIL made unimportable."""
+    rng = np.random.RandomState(0)
+    n_batches = len(run["labels"])
+    with mock.patch.dict(sys.modules, {"PIL": None}):  # `import PIL` fails
+        batches = [port_data_fn(rng, TRAIN_BATCH) for _ in range(n_batches)]
+    for i, (x, y) in enumerate(batches):
+        if not (np.array_equal(x, run["inputs"][i])
+                and np.array_equal(y, run["labels"][i])):
+            raise AssertionError(f"batch {i} differs from the JAX "
+                                 f"generator's")
+
+
+def check_loss_and_grads(loss_fn, run, dev):
+    """loss_fn's loss and gradients from the fixture's initial parameters
+    on its first batch, on dev, against jax.value_and_grad's: the loss
+    within LOSS_RTOL, each gradient within GRAD_ATOL or GRAD_RTOL of its
+    size. Returns (loss's relative error, largest gradient error, its share
+    of the tolerance)."""
+    params = {k: v.requires_grad_(True)
+              for k, v in run_params(run, "init", dev).items()}
+    loss = loss_fn(params, torch.from_numpy(run["inputs"][0]).to(dev),
+                   torch.from_numpy(run["labels"][0]).to(dev))
+    loss.backward()
+    loss_rel = abs(loss.item() - float(run["loss"])) / abs(float(run["loss"]))
+    worst, share = 0.0, 0.0
+    for k, p in params.items():
+        want = run["grad/" + k]
+        err = np.abs(p.grad.cpu().numpy() - want)
+        tol = np.maximum(GRAD_ATOL, GRAD_RTOL * np.abs(want))
+        worst, share = max(worst, float(err.max())), max(
+            share, float((err / tol).max()))
+    if loss_rel > LOSS_RTOL or share > 1.0:
+        raise AssertionError(f"loss {loss.item()} against {run['loss']} "
+                             f"(relative {loss_rel:.3g}); gradients off by "
+                             f"up to {worst:.3g}, {share:.3g} of the "
+                             f"tolerance")
+    return loss_rel, worst, share
+
+
+def check_fit(loss_fn, run, dev):
+    """A fit of the fixture's steps at TRAIN_LR from its initial parameters
+    on its batches, on dev, against the JAX fit: losses within FIT_ATOL,
+    parameters as FIT_ATOL says. Returns (largest loss difference, largest
+    parameter difference, its parameter, the first gradient's size there,
+    elements beyond FIT_ATOL, {parameter: (elements whose first gradient is
+    under FIT_SMALL_GRAD, those of them whose gradient is 0)} for each
+    parameter that has any)."""
+    from cardio_dmz_tpu_torch.train import fit
+    batches = iter(zip(run["inputs"], run["labels"]))
+    trained, losses = fit(loss_fn, run_params(run, "init", dev), batches,
+                          steps=len(run["labels"]), learning_rate=TRAIN_LR)
+    loss_err = float(np.abs(np.float32(losses) - run["fit_losses"]).max())
+    worst, where, grad_there, beyond, small = 0.0, None, 0.0, 0, {}
+    for k, p in trained.items():
+        diff = np.abs(p.cpu().numpy() - run["fit/" + k])
+        grad = np.abs(run["grad/" + k])
+        tol = np.where(grad >= FIT_SMALL_GRAD, FIT_ATOL, FIT_SMALL_GRAD_ATOL)
+        if (diff > tol).any():
+            raise AssertionError(f"fit: {k} off by up to {diff.max():.3g}")
+        beyond += int((diff > FIT_ATOL).sum())
+        if (grad < FIT_SMALL_GRAD).any():
+            small[k] = (int((grad < FIT_SMALL_GRAD).sum()),
+                        int((grad == 0).sum()))
+        i = int(diff.argmax())
+        if diff.flat[i] >= worst:
+            worst, where, grad_there = float(diff.flat[i]), k, float(
+                grad.flat[i])
+    if loss_err > FIT_ATOL:
+        raise AssertionError(f"fit losses {losses} against "
+                             f"{run['fit_losses']}")
+    return loss_err, worst, where, grad_there, beyond, small
+
+
+def train_step_timing(port, model, batch, dev, reps=20):
+    """(host-clock ms a train step, device ms and device operations of
+    one) for `model` at `batch` on dev: the step of fit (zero_grad,
+    forward, backward, Adam) on one batch already on the card. The
+    profiler now and then records no device work at all; after three such
+    tries the device numbers are None (not measured)."""
+    from cardio_dmz_tpu_torch.tools.train_models import _spec
+    from cardio_dmz_tpu_torch.train import make_train_step
+    init_fn, loss_fn, _, data_fn = _spec(model, dev)
+    params = {k: v.requires_grad_(True) for k, v in init_fn().items()}
+    optimizer = torch.optim.Adam(list(params.values()), lr=TRAIN_LR)
+    step = make_train_step(loss_fn, optimizer)
+    x, y = (torch.from_numpy(a).to(dev)
+            for a in data_fn(np.random.RandomState(1), batch))
+    ms = host_ms(lambda: step(params, x, y), reps)
+    for _ in range(3):
+        prof = profile_step(lambda: step(params, x, y))
+        if prof["device_ops"]:
+            return ms, prof["device_ms"], prof["device_ops"]
+    return ms, None, None
+
+
+def train_phase(port, kernels, card, dev):
+    phase("19 train")
+    import tempfile
+    from cardio_dmz_tpu_torch.session.checkpoint import (
+        load_params_npz, save_params)
+    from cardio_dmz_tpu_torch.tools.train_models import _spec, train_one
+    fixture = load_npz(fixture_path(port, "train_session.npz"))
+    out = {}
+    reset_launches(kernels)
+    for model in TRAIN_MODELS:
+        run = train_run(fixture, model)
+        _, loss_fn, apply_fn, data_fn = _spec(model, dev)
+        check_train_batches(data_fn, run)
+        loss_rel, grad_err, grad_share = check_loss_and_grads(loss_fn, run,
+                                                              dev)
+        loss_err, worst, where, grad_there, beyond, small = check_fit(
+            loss_fn, run, dev)
+        print(f"{model}: 3 seed-0 batches of {TRAIN_BATCH} equal the JAX "
+              f"generator's bit for bit without PIL; loss relative error "
+              f"{loss_rel:.3g}, gradients within {grad_err:.3g} "
+              f"({grad_share:.3g} of the tolerance); 3-step fit: losses "
+              f"within {loss_err:.3g}, parameters within {worst:.3g} (in "
+              f"{where}, first gradient {grad_there:.3g} there; {beyond} "
+              f"elements beyond {FIT_ATOL}); held to {FIT_SMALL_GRAD_ATOL} "
+              f"where the first gradient is under {FIT_SMALL_GRAD}: "
+              + (", ".join(f"{k} {n} ({z} of them 0)"
+                           for k, (n, z) in small.items()) or "none"))
+
+        steps, floor = TRAIN_FLOORS[model]
+        t0 = time.perf_counter()
+        params, acc, _ = train_one(model, steps, TRAIN_BATCH, TRAIN_LR, None,
+                                   device=dev)
+        seconds = time.perf_counter() - t0
+        if not acc > floor:
+            raise AssertionError(f"{model}: held-out accuracy {acc} after "
+                                 f"{steps} steps; the floor is {floor}")
+        inputs, _ = data_fn(np.random.RandomState(99), 512)
+        inputs = torch.from_numpy(inputs).to(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "retrained.npz")
+            save_params(path, {model: params})
+            module = load_params_npz(path, device=dev)[model]
+        with torch.no_grad():
+            served = float((module(inputs) - apply_fn(params, inputs)).abs(
+                ).max())
+        if not served <= SCORE_ATOL:
+            raise AssertionError(f"{model}: the serving module differs from "
+                                 f"the trainable form by {served}")
+        timings = {b: train_step_timing(port, model, b, dev)
+                   for b in ((TRAIN_BATCH, SERVING_BATCH)
+                             if model == "pan_conv" else (TRAIN_BATCH,))}
+        print(f"{model}: {steps} steps in {seconds:.3f} s (batches made on "
+              f"the host), held-out accuracy {acc:.4f} > {floor}; saved and "
+              f"loaded into the serving module: outputs within {served:.3g}; "
+              + "; ".join(f"train step at batch {b}: {ms:.3f} ms host clock, "
+                          + (f"{dms:.3f} ms device over {ops} device "
+                             f"operations" if ops else
+                             "device time not measured (the profiler saw "
+                             "no device work)")
+                          for b, (ms, dms, ops) in timings.items())
+              + f"; card {card}")
+        out[model] = {"accuracy": acc, "timings": timings}
+    launches = read_launches(kernels)
+    if any(launches.values()):
+        raise AssertionError(f"training launched a serving kernel: "
+                             f"{launches}")
+    return out
+
+
+# --- 20 entry ---------------------------------------------------------------
+
+def entry_phase(port, kernels, card, dev):
+    phase("20 entry")
+    from cardio_dmz_tpu_torch import entry as entry_module
+    fixture = load_npz(fixture_path(port, "train_session.npz"))
+    fn, (frames,) = entry_module.entry(dev)
+    reset_launches(kernels)
+    scores, usable, y_offset = fn(frames)
+    torch.cuda.synchronize()
+    at_entry = read_launches(kernels)
+    err = _max_abs_err(scores, torch.from_numpy(fixture["entry_scores"]).to(
+        dev))
+    if not (np.array_equal(usable.cpu().numpy(), fixture["entry_usable"])
+            and np.array_equal(y_offset.cpu().numpy(),
+                               fixture["entry_y_offset"])
+            and err <= SCORE_ATOL and at_entry["digit_prep"] == 1):
+        raise AssertionError(f"entry(): usable {usable}, y_offset "
+                             f"{y_offset}, scores off by {err}; the JAX "
+                             f"entry's {fixture['entry_usable']}, "
+                             f"{fixture['entry_y_offset']}; launches "
+                             f"{at_entry}")
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    summary = entry_module.dryrun_multichip(4, [dev] * 4)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    dryrun = read_launches(kernels)
+    # a data group's shard: one serving step (digit prep) and one full
+    # camera step (all three kernels once)
+    groups = summary["mesh"]["data"]
+    want = {"digit_prep": 2 * groups, "warp_gather": groups,
+            "persp_qr": groups}
+    if dryrun != want:
+        raise AssertionError(f"the dry run launched {dryrun}; its "
+                             f"{groups} data groups should launch {want}")
+    print(f"entry() on {dev}: usable and y_offset equal the JAX entry's, "
+          f"scores within {err:.3g}; launches {at_entry}. "
+          f"dryrun_multichip(4) over 4 x {dev}: mesh {summary['mesh']}, "
+          f"train loss {summary['train_loss']:.6f}, "
+          f"{summary['streams']} streams, {seconds:.3f} s; launches "
+          f"{dryrun}; card {card}")
+    return {"entry": at_entry, "dryrun": dryrun}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -1910,6 +2187,8 @@ def main():
     checkpoint_phase(port, kernels, params, expiry, host, dates, dev)
     split = split_step_phase(port, kernels, params, expiry, dates, card, dev)
     loop = serving_loop_phase(port, kernels, card, dev)
+    train_phase(port, kernels, card, dev)
+    hooks = entry_phase(port, kernels, card, dev)
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -1922,6 +2201,8 @@ def main():
         "launches_split_full_camera_run":
             split["camera-full [cuda:0, cuda:0]"][name],
         "launches_serving_loop": loop["launches"][name],
+        "launches_entry": hooks["entry"][name],
+        "launches_dryrun_multichip": hooks["dryrun"][name],
         **measured[name]} for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

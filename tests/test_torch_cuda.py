@@ -277,3 +277,33 @@ def test_products_on_card_across_batch_sizes(cuda_device, model):  # noqa: F811
     for n in (1, 16, 2032, 2064):
         torch.testing.assert_close(module(x[:n].contiguous()), whole[:n],
                                    atol=1e-5, rtol=0)
+
+
+def _train_run(model):
+    from chip_smoke import load_npz, train_run
+    return train_run(load_npz(os.path.join(DATA, "train_session.npz")),
+                     model)
+
+
+@pytest.mark.parametrize("model", ["pan_conv", "vseg_mlp", "slash_mlp",
+                                   "expiry_conv"])
+def test_train_step_on_card_matches_jax(cuda_device, model):  # noqa: F811
+    """chip_smoke.py phase 19's checks: from the JAX initial parameters on
+    the JAX batch, the loss and gradients on the card, and a three-step
+    fit, against data/train_session.npz (the JAX package's)."""
+    from chip_smoke import check_fit, check_loss_and_grads
+    from cardio_dmz_tpu_torch.tools.train_models import _spec
+    run = _train_run(model)
+    loss_fn = _spec(model, cuda_device)[1]
+    check_loss_and_grads(loss_fn, run, cuda_device)
+    check_fit(loss_fn, run, cuda_device)
+
+
+@pytest.mark.parametrize("model", ["pan_conv", "vseg_mlp", "slash_mlp",
+                                   "expiry_conv"])
+def test_generators_without_pil(cuda_device, model):  # noqa: F811
+    """The generators, with `import PIL` made to fail, make the fixture's
+    seed-0 batches bit for bit on the card's machine."""
+    from chip_smoke import check_train_batches
+    from cardio_dmz_tpu_torch.tools.train_models import _spec
+    check_train_batches(_spec(model, cuda_device)[3], _train_run(model))

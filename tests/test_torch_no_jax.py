@@ -1,7 +1,8 @@
-"""The port runs with jax made unimportable, and never imports the JAX
-package: the PAN-only step, the camera step and both full (PAN + expiry)
-steps, and the host side: HostScanner, a checkpoint saved and loaded, the
-frame pump built and used, the step split over a device list."""
+"""The port runs with jax and PIL made unimportable, and never imports the
+JAX package: the PAN-only step, the camera step and both full (PAN +
+expiry) steps, the host side (HostScanner, a checkpoint saved and loaded,
+the frame pump built and used, the step split over a device list), and
+training (a batch of each generator, a fit step)."""
 
 import os
 import subprocess
@@ -12,9 +13,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SCRIPT = """
 import sys
 sys.modules["jax"] = None                      # any `import jax` now fails
+sys.modules["PIL"] = None                      # ... and any `import PIL`
 import numpy as np
 import torch
 import cardio_dmz_tpu_torch as port
+torch.set_num_threads(1)       # the suite's other workers share the cores
 
 params = port.load_all_params("cpu")
 states = port.init_stream_states(2, "cpu", (2026, 1))
@@ -62,8 +65,20 @@ assert len(split_states) == 2 and result.complete.shape == (2,)
 assert all(port.models.self_check("cpu").values())
 assert port.blur_card(frames[0].numpy(), split_states[0]).shape == (270, 428)
 
-leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("cardio_dmz_tpu", "jaxlib"))
+# training: the generators draw their glyphs from a table, not PIL
+from cardio_dmz_tpu_torch import train
+rng = np.random.RandomState(0)
+for make in (train.synthetic_digit_batch, train.synthetic_vseg_batch,
+             train.synthetic_slash_batch, train.synthetic_expiry_digit_batch):
+    x, labels = make(rng, 4)
+    assert len(x) == len(labels) == 4
+params = train.init_pan_conv_params(torch.Generator().manual_seed(0), "cpu")
+_, losses = train.fit(train.pan_conv_loss, params,
+                      iter([train.synthetic_digit_batch(rng, 8)]), steps=1)
+assert np.isfinite(losses[0])
+
+leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("cardio_dmz_tpu", "jaxlib", "PIL"))
 assert not leaked, leaked
 print("ok")
 """

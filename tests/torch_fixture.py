@@ -36,10 +36,25 @@ analytics rings (their corners are the detector's run op by op); and the
 portrait run's state after three frames as the bytes of a checkpoint
 written by the JAX package's save_session_npz.
 
-chip_smoke.py replays all four through the port on the card, where neither
-JAX nor the renderer is installed. Write the files anew with:
+train_glyphs.npz, the glyph masks the training generators draw with PIL:
+the 10 PAN digit masks of synthetic._digit_mask (27x19) and the 60 expiry
+digit masks of train/data._render_expiry_char (16x11, every digit at
+every jitter it draws). The port's generators (cardio_dmz_tpu_torch/
+train/) take them from this table and need no PIL.
 
-    python tests/torch_fixture.py
+train_session.npz, training and __graft_entry__: for each of the four
+architectures of tools/train_models.py, its initial parameters
+(PRNGKey(0)), three seed-0 batches of 64 from its generator,
+value_and_grad's loss and gradients on the first batch, and a three-step
+fit at lr 3e-3 on the three batches (its losses and final parameters);
+and __graft_entry__.entry()'s outputs on its four noise frames.
+
+chip_smoke.py replays them through the port on the card, where neither
+JAX nor the renderer is installed. Write the files anew with
+
+    python tests/torch_fixture.py [smoke camera expiry host glyphs train]
+
+(all of them when none is named).
 """
 
 import functools
@@ -58,7 +73,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import synthetic  # noqa: E402
 from cardio_dmz_tpu import api  # noqa: E402
 from chip_smoke import (  # noqa: E402
-    ORIENTATIONS, group_rects, paste_previews)
+    ORIENTATIONS, TRAIN_BATCH, TRAIN_LR, TRAIN_MODELS, group_rects,
+    paste_previews)
 from cardio_dmz_tpu.constants import (  # noqa: E402
     LANDSCAPE_HORIZONTAL_INSET, LANDSCAPE_VERTICAL_INSET,
     ORIENTATION_LANDSCAPE_RIGHT)
@@ -75,6 +91,8 @@ FIXTURE = os.path.join(_DATA, "smoke_session.npz")
 CAMERA_FIXTURE = os.path.join(_DATA, "camera_session.npz")
 EXPIRY_FIXTURE = os.path.join(_DATA, "expiry_session.npz")
 HOST_FIXTURE = os.path.join(_DATA, "host_session.npz")
+GLYPH_FIXTURE = os.path.join(_DATA, "train_glyphs.npz")
+TRAIN_FIXTURE = os.path.join(_DATA, "train_session.npz")
 NOW = (2026, 1)
 N_FRAMES = 6
 # (pan, y0, noise): two readable PANs, a wrong-Luhn PAN and an upside-down
@@ -684,11 +702,119 @@ def checkpoint_leaves(npz_bytes):
         return [data[f"arr_{i}"] for i in range(len(data.files))]
 
 
+# --- training and __graft_entry__ -------------------------------------------
+
+TRAIN_STEPS = 3
+
+
+def glyph_arrays():
+    """What train_glyphs.npz holds: synthetic._digit_mask of each digit, and
+    each expiry digit as train/data._render_expiry_char draws it (bold mono
+    18, at 1 + jx, 1 + jy of its box) for jx in (-1, 0, 1), jy in (-1, 0)."""
+    from PIL import Image, ImageDraw
+
+    from cardio_dmz_tpu.synthetic import _digit_mask
+    from cardio_dmz_tpu.train.data import _FONT_MONO_BOLD, _font
+
+    font = _font(_FONT_MONO_BOLD, 18)
+    expiry = np.zeros((10, 3, 2, 16, 11), np.float32)
+    for d in range(10):
+        for jx in (-1, 0, 1):
+            for jy in (-1, 0):
+                img = Image.new("L", (11, 16), 0)
+                draw = ImageDraw.Draw(img)
+                bbox = draw.textbbox((0, 0), str(d), font=font)
+                draw.text((1 + jx - bbox[0], 1 + jy - bbox[1]), str(d),
+                          fill=255, font=font)
+                expiry[d, jx + 1, jy + 1] = np.asarray(img).astype(
+                    np.float32) / 255.0
+    return {"pan_digits": np.stack([_digit_mask(d) for d in range(10)]),
+            "expiry_digits": expiry}
+
+
+@functools.lru_cache(maxsize=None)
+def train_spec(model):
+    """tools/train_models._spec(model) of the JAX package."""
+    from cardio_dmz_tpu.tools.train_models import _spec
+    return _spec(model)
+
+
+@functools.lru_cache(maxsize=None)
+def train_batches(model, seed=0):
+    """TRAIN_STEPS batches of TRAIN_BATCH from the model's JAX generator
+    at `seed`: (inputs (3, B, ...), labels (3, B))."""
+    data_fn = train_spec(model)[3]
+    rng = np.random.RandomState(seed)
+    batches = [data_fn(rng, TRAIN_BATCH) for _ in range(TRAIN_STEPS)]
+    return (np.stack([b[0] for b in batches]),
+            np.stack([b[1] for b in batches]))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_value_and_grad(model):
+    """jit(value_and_grad(loss_fn)) of the JAX package for `model`."""
+    return jax.jit(jax.value_and_grad(train_spec(model)[1]))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_train_run(model):
+    """{name: numpy array} of one architecture: its initial parameters
+    ("init/<key>"), the batches, the loss and gradients on batch 0 and the
+    three-step fit ("fit/<key>", "fit_losses")."""
+    from cardio_dmz_tpu.train import fit
+
+    init_fn, loss_fn = train_spec(model)[:2]
+    params = init_fn()
+    inputs, labels = train_batches(model)
+    loss, grads = jax_value_and_grad(model)(params, inputs[0], labels[0])
+    trained, losses = fit(loss_fn, params, iter(zip(inputs, labels)),
+                          steps=TRAIN_STEPS, learning_rate=TRAIN_LR)
+    out = {"inputs": inputs, "labels": labels,
+           "loss": np.float32(loss), "fit_losses": np.float32(losses)}
+    for prefix, tree in (("init", params), ("grad", grads),
+                         ("fit", trained)):
+        out.update({f"{prefix}/{k}": np.asarray(v) for k, v in tree.items()})
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def jax_entry():
+    """__graft_entry__.entry()'s function, jitted as a compile check jits
+    it, on its example frames, as numpy: (scores, usable, y_offset)."""
+    from __graft_entry__ import entry
+    fn, args = entry()
+    return tuple(np.asarray(x) for x in jax.jit(fn)(*args))
+
+
+def train_run_arrays():
+    """The training arrays of train_session.npz, "<model>/<name>" for each
+    architecture, computed now from the JAX package."""
+    return {f"{m}/{k}": v for m in TRAIN_MODELS
+            for k, v in jax_train_run(m).items()}
+
+
+def entry_arrays():
+    """The entry's arrays of train_session.npz, computed now."""
+    return dict(zip(("entry_scores", "entry_usable", "entry_y_offset"),
+                    jax_entry()))
+
+
+def train_fixture_arrays():
+    """What train_session.npz holds."""
+    return {**train_run_arrays(), **entry_arrays()}
+
+
+WRITERS = {"smoke": (FIXTURE, fixture_arrays),
+           "camera": (CAMERA_FIXTURE, camera_fixture_arrays),
+           "expiry": (EXPIRY_FIXTURE, expiry_fixture_arrays),
+           "host": (HOST_FIXTURE, host_fixture_arrays),
+           "glyphs": (GLYPH_FIXTURE, glyph_arrays),
+           "train": (TRAIN_FIXTURE, train_fixture_arrays)}
+
+
 if __name__ == "__main__":
     os.makedirs(_DATA, exist_ok=True)
-    for path, arrays in ((FIXTURE, fixture_arrays),
-                         (CAMERA_FIXTURE, camera_fixture_arrays),
-                         (EXPIRY_FIXTURE, expiry_fixture_arrays),
-                         (HOST_FIXTURE, host_fixture_arrays)):
+    for name in sys.argv[1:] or WRITERS:
+        path, arrays = WRITERS[name]
         np.savez_compressed(path, **arrays())
         print(f"wrote {path} ({os.path.getsize(path)} bytes)")

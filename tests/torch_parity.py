@@ -12,6 +12,13 @@ import torch
 
 from cardio_dmz_tpu_torch.models.weights import MODEL_NAMES, params_from_numpy
 
+# The suite runs in several worker processes at once (pytest-xdist), each of
+# which imports this module while it collects. One intra-op thread each:
+# torch's default of a thread a core in every worker oversubscribes the
+# host many times over (a train_one of the expiry conv took 20x longer in
+# the suite than alone).
+torch.set_num_threads(1)
+
 
 @functools.lru_cache(maxsize=None)
 def np_params():
