@@ -46,7 +46,8 @@ from .api import blur_card  # noqa: F401
 from .models import load_all_params  # noqa: F401
 from .parallel import (  # noqa: F401
     batched_camera_step, batched_scan_frames, batched_scanner_step,
-    init_stream_states, make_mesh, make_sharded_step, shard_streams)
+    init_stream_states, make_mesh, make_sharded_camera_step,
+    make_sharded_step, shard_streams)
 from .runtime import FramePump, Metrics  # noqa: F401
 from .session import (  # noqa: F401
     HostScanner, load_session, save_session, scan_frames)

@@ -18,10 +18,8 @@ import numpy as np
 import torch
 
 from .models import load_all_params
-from .parallel import (
-    batched_camera_step, gather_streams, make_mesh, make_sharded_step)
-from .parallel.mesh import as_device, require_cuda
-from .parallel.streams import device_scope, replicate_params
+from .parallel import make_mesh, make_sharded_camera_step, make_sharded_step
+from .parallel.mesh import card_devices, named_device
 from .scan import scan_card_image
 from .train import fit, init_pan_conv_params, pan_conv_loss
 
@@ -32,7 +30,7 @@ def entry(device=None):
     CUDA device when None). fn(frames) -> (scores (S, 16, 10), usable (S,),
     vseg y_offset (S,)); example_args: 4 frames of seeded 270x428 noise on
     the device."""
-    device = require_cuda("entry") if device is None else as_device(device)
+    device = named_device(device, "entry")
     params = load_all_params(device)
 
     def fn(frames):
@@ -45,18 +43,12 @@ def entry(device=None):
 
 
 def _mesh_devices(n_devices, devices):
-    if devices is not None:
-        if len(devices) != n_devices:
-            raise ValueError(f"{len(devices)} devices named for a mesh of "
-                             f"{n_devices}")
-        return devices
-    first = require_cuda("dryrun_multichip")
-    count = torch.cuda.device_count()
-    if count == 1:
-        return [first] * n_devices
-    if count < n_devices:
-        raise ValueError(f"{count} CUDA devices for a mesh of {n_devices}")
-    return [torch.device("cuda", i) for i in range(n_devices)]
+    devices = card_devices(n_devices, "dryrun_multichip") \
+        if devices is None else devices
+    if len(devices) != n_devices:
+        raise ValueError(f"{len(devices)} devices for a mesh of "
+                         f"{n_devices}")
+    return devices
 
 
 def dryrun_multichip(n_devices, devices=None):
@@ -103,20 +95,13 @@ def dryrun_multichip(n_devices, devices=None):
                            f"{tuple(results.complete.shape)} streams")
 
     # --- the camera -> digits step with the expiry read, a shard each ---
-    copies = replicate_params(serve_params, mesh.data_devices)
-    cam_states = init(n_streams, now)
-    y = place(torch.from_numpy(
+    cam_step, cam_place, cam_init = make_sharded_camera_step(
+        serve_params, mesh, scan_expiry=True)
+    y = cam_place(torch.from_numpy(
         rng.randint(0, 256, (n_streams, 480, 640)).astype(np.uint8)))
-    cb = place(torch.from_numpy(
+    cb = cam_place(torch.from_numpy(
         rng.randint(0, 256, (n_streams, 240, 320)).astype(np.uint8)))
-    outputs = []
-    for k, device in enumerate(mesh.data_devices):
-        with device_scope(device):
-            cam_states[k], out = batched_camera_step(
-                copies[device], cam_states[k], y[k], cb[k], cb[k],
-                scan_expiry=True)
-        outputs.append(out)
-    _, _, cam_results = gather_streams(outputs, home)
+    _, (_, _, cam_results) = cam_step(cam_init(n_streams, now), y, cb, cb)
     if cam_results.complete.shape != (n_streams,):
         raise RuntimeError(f"dryrun_multichip: camera results for "
                            f"{tuple(cam_results.complete.shape)} streams")

@@ -46,6 +46,13 @@ def load_np(name, include_test_vectors=False):
                 if include_test_vectors or not k.startswith("test_")}
 
 
+def load_params(name, device, include_test_vectors=False):
+    """One model's arrays as a dict of float32 tensors on `device`, keyed
+    as in the npz (the JAX package's load_params, placed)."""
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in load_np(name, include_test_vectors).items()}
+
+
 def module_from_numpy(name, arrays, device):
     """One model's module on `device` from its {array name: numpy array}:
     a model of the scan (MODEL_NAMES) or a retrained "pan_conv". Raises

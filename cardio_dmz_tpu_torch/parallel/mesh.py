@@ -53,6 +53,27 @@ def require_cuda(what):
     return as_device("cuda")
 
 
+def named_device(device, what):
+    """`device` as a torch.device; None names the card. A CUDA device
+    without a card raises (naming `what`): an entry point whose default is
+    the card never falls back to the CPU unless "cpu" is named."""
+    if device is None or torch.device(device).type == "cuda":
+        require_cuda(what)
+    return as_device("cuda" if device is None else device)
+
+
+def card_devices(n, what):
+    """The default devices of a tool that splits over n devices: n copies
+    of cuda:0 on a machine with one card (their shards then run one after
+    another), else its first min(n, count) cards. Raises, naming `what`,
+    when there is no card."""
+    first = require_cuda(what)
+    count = torch.cuda.device_count()
+    if count == 1:
+        return [first] * n
+    return [torch.device("cuda", i) for i in range(min(count, n))]
+
+
 def make_mesh(devices=None, model_parallel=1) -> Mesh:
     """A (data, model) mesh over `devices`; every CUDA device when None
     (there is no CPU default: name "cpu" to get it). model_parallel=1 is

@@ -3,8 +3,9 @@
 Many concurrent camera streams stepped together through the scan pipeline
 and the session state machine. Every function of the port is already
 stream-major, so the batched step is scanner_step over the stream axis;
-the JAX package reaches the same shape with vmap. make_sharded_step splits
-the stream axis over a list of devices (parallel/mesh.py).
+the JAX package reaches the same shape with vmap. make_sharded_step and
+make_sharded_camera_step split the stream axis over a list of devices
+(parallel/mesh.py).
 """
 
 import contextlib
@@ -80,6 +81,31 @@ def replicate_params(params, devices):
     return copies
 
 
+def _sharded(params, mesh, sizes, step_one):
+    """(step, place, init) of step_one(params, state, *inputs) with the
+    stream axis split over `mesh`; see make_sharded_step."""
+    devices = data_devices(mesh)
+    copies = replicate_params(params, devices)
+
+    def place(x):
+        return shard_streams(devices, x, sizes)
+
+    def init(n_streams, now):
+        return place(init_stream_states(n_streams, devices[0], now))
+
+    def step(states, *inputs):
+        new_states, outputs = [], []
+        for k, (device, state) in enumerate(zip(devices, states)):
+            with device_scope(device):
+                state, out = step_one(copies[device], state,
+                                      *(shards[k] for shards in inputs))
+            new_states.append(state)
+            outputs.append(out)
+        return new_states, gather_streams(outputs, devices[0])
+
+    return step, place, init
+
+
 def make_sharded_step(params, mesh, scan_expiry=False, sizes=None):
     """batched_scanner_step with the stream axis split over `mesh` (a Mesh
     or a list of devices; a device may appear twice) and the parameters
@@ -96,23 +122,22 @@ def make_sharded_step(params, mesh, scan_expiry=False, sizes=None):
     The shards are stepped one after another from the calling thread; on
     distinct CUDA devices their kernels overlap, since a launch does not
     wait for the device."""
-    devices = data_devices(mesh)
-    copies = replicate_params(params, devices)
+    def step_one(shard_params, state, frames):
+        return batched_scanner_step(shard_params, state, frames, scan_expiry)
 
-    def place(x):
-        return shard_streams(devices, x, sizes)
+    return _sharded(params, mesh, sizes, step_one)
 
-    def init(n_streams, now):
-        return place(init_stream_states(n_streams, devices[0], now))
 
-    def step(states, frames):
-        new_states, outputs = [], []
-        for device, state, shard in zip(devices, states, frames):
-            with device_scope(device):
-                state, out = batched_scanner_step(
-                    copies[device], state, shard, scan_expiry)
-            new_states.append(state)
-            outputs.append(out)
-        return new_states, gather_streams(outputs, devices[0])
+def make_sharded_camera_step(params, mesh, scan_expiry=False, sizes=None):
+    """batched_camera_step split over `mesh` as make_sharded_step splits
+    the scanner step: a full camera step on each shard (the JAX package,
+    too, has no sharded form of the camera step of its own: its callers
+    jit the camera step over stream-sharded inputs). Returns (step, place,
+    init); step(states, y, cb, cr), each a list of shards -> (states,
+    (found, FrameResult, ScannerResult)) with the outputs stream-major on
+    the first device."""
+    def step_one(shard_params, state, y, cb, cr):
+        return batched_camera_step(shard_params, state, y, cb, cr,
+                                   scan_expiry=scan_expiry)
 
-    return step, place, init
+    return _sharded(params, mesh, sizes, step_one)

@@ -58,15 +58,6 @@ def _spec(model, device):
     }[model]
 
 
-def _device(device):
-    """`device` as a torch.device; a CUDA device without one raises (no
-    CPU fallback: name "cpu" for it)."""
-    from ..parallel.mesh import as_device, require_cuda
-    if torch.device(device).type == "cuda":
-        require_cuda("train_models")
-    return as_device(device)
-
-
 def train_one(model, steps, batch, lr, mesh, seed=0, compare_golden=False,
               device="cuda"):
     """Train one architecture from seed-0 initial parameters on batches
@@ -75,9 +66,11 @@ def train_one(model, steps, batch, lr, mesh, seed=0, compare_golden=False,
     from seed + 99. Returns (params, accuracy, the golden weights' accuracy
     on the same eval or None)."""
     from ..models.weights import load_np, module_from_numpy
+    from ..parallel.mesh import named_device
     from ..train import fit
 
-    device = mesh.devices[0][0] if mesh is not None else _device(device)
+    device = mesh.devices[0][0] if mesh is not None else named_device(
+        device, "train_models")
     init_fn, loss_fn, apply_fn, data_fn = _spec(model, device)
     rng = np.random.RandomState(seed)
 
@@ -130,10 +123,10 @@ def main(argv=None):
                     help="the device to train on (default cuda)")
     args = ap.parse_args(argv)
 
-    from ..parallel.mesh import make_mesh
+    from ..parallel.mesh import make_mesh, named_device
     from ..session.checkpoint import save_params
 
-    device = _device(args.device)
+    device = named_device(args.device, "train_models")
     mesh = None
     if args.mesh:
         mesh = make_mesh(None if args.device == "cuda" else [device])

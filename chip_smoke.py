@@ -17,8 +17,10 @@ without printing its last line:
             256 streams x 16 cells on uniform-noise strips, on the PAN
             strips of the recorded fixture frames (through vseg and hseg)
             and on an all-equal strip (every gradient 0), and on the first
-            1, 2, 3, 4, 16, 127 and 129 streams of each (STREAM_COUNTS: the
-            stream counts of the later phases); kernel times on each set at
+            1, 2, 3, 4, 8, 16, 32, 64, 127 and 129 streams of each
+            (STREAM_COUNTS: every stream count at which a later phase
+            launches a kernel, phase 21's derived from its sweep and curve
+            constants); kernel times on each set at
             256 streams, the plain version's on the real strips
 4. models   the reference's golden vectors on the card, at 1e-5
             (models/selfcheck.self_check)
@@ -32,7 +34,7 @@ without printing its last line:
             step ms, peak memory and a per-stage split
 7. persp    persp-QR kernel == its plain version, bit for bit and NaN
             included, on 256 detector-realistic corner sets and an all-zero
-            one, and at 1, 2, 3, 4, 16, 127, 129, 255, 256 and 257 streams
+            one, and at STREAM_COUNTS, 255 and 257 streams
             (degenerate sets
             first: all zero, a repeated, an inf and a NaN corner) with the
             card's destination and with a rectangle a stream; kernel, plain
@@ -44,7 +46,8 @@ without printing its last line:
             == its plain route (float64 maps, then the gather), u8 for u8,
             on 256 uniform-noise frames through envelope quads, landscape
             and portrait, and on a NaN homography (all-zero corners), and
-            at 1, 2, 3, 4, 16, 127 and 129 of those streams, the NaN one among
+            at the first 1, ..., 129 (STREAM_COUNTS) of those streams, the
+            NaN one among
             them; kernel times at 256 streams
 9. camera   the recorded camera sessions (data/camera_session.npz, written
             from the JAX package by tests/torch_fixture.py) through
@@ -106,9 +109,10 @@ without printing its last line:
             continues to the recorded reads
 17. split step
             make_sharded_step over [cuda:0] and over [cuda:0, cuda:0] as
-            129 + 127 streams, PAN-only and full, and the camera step a
-            shard, against the unsplit step: over [cuda:0] bit for bit;
-            over the uneven two, every integer and bool leaf equal and
+            129 + 127 streams, PAN-only and full, and
+            make_sharded_camera_step (the full camera step a shard) over
+            [cuda:0, cuda:0], against the unsplit step: over [cuda:0]
+            bit for bit; over the uneven two, every integer and bool leaf equal and
             the float leaves within 1e-5 (the GEMM library picks its
             kernel, and with it its summation order, by the call's row
             count); each kernel's launches are the shards times the
@@ -142,6 +146,24 @@ without printing its last line:
             loss, the serving and the camera step a shard; the three
             kernels' launches in it, exactly digit prep twice and the warp
             and persp QR once a data group
+21. tools   tools/bench_matrix.py on the card, all five shapes (full, pan,
+            camera, latency, camera_latency), each bench in a process of
+            its own: every line has its shape's metric name and unit and
+            a value above 0; one bench step of each shape in this process,
+            with each kernel's launches in it (digit prep once a step on
+            the rectified shapes, all three once on the camera shapes),
+            its host-clock ms, device ms and operations and the device's
+            idle share;
+            the detector finds all 16 of the camera shape's rendered
+            previews; tools/accuracy_sweep.py's rectified sweep at
+            its defaults (512 sessions of 8 frames), whose reads equal the
+            JAX package's (data/sweep_session.npz, written by
+            tests/torch_fixture.py) session for session with no wrong
+            read, and its camera sweep (128 sessions of 8 frames) with no
+            wrong read and at most 2 sessions accepted otherwise than the
+            JAX package's (each one printed: the previews come from the
+            float warp, not the JAX package's bits); tools/scaling_curve.py
+            over 1, 2 and 4 copies of cuda:0, with the camera step
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times from
 kernel_ms: many calls captured in one CUDA graph and replayed, so the
@@ -155,8 +177,11 @@ on the camera serving path (and on the PAN-only one), its largest
 difference from the plain version, its time, the plain version's and one
 PyTorch call's where one computes the same function, and its bound: the
 larger of the bytes it must move over the card's memory rate and its
-operations over the card's peak rate; and its launches in phase 20's
-entry() and dry run. The last line is {"ok": true, "device": {...}}.
+operations over the card's peak rate; its launches in phase 20's entry()
+and dry run; and its launches in one bench step of each shape (phase
+21). Before it come a line with every phase's seconds and the total, and
+the card's name and power limit. The last line is {"ok": true,
+"device": {...}}.
 Needs no network, no JAX and no PIL; builds into
 cardio_dmz_tpu_torch/_build/.
 """
@@ -174,11 +199,22 @@ import numpy as np
 import torch
 
 N_STREAMS = 256          # the serving shape of tools/bench.py
+# phase 21's launch shapes: the accuracy sweeps at their defaults (sessions,
+# frames, batch, seed; every batch, the last one padded, is one launch at
+# `batch` streams) and the scaling curve (global batch, timed steps, and the
+# split sizes, each shard a launch at global batch / size streams)
+SWEEP_ARGS = (512, 8, 64, 2026)          # run_sweep's defaults
+CAMERA_SWEEP_ARGS = (128, 8, 32, 2026)   # run_camera_sweep's
+CURVE_BATCH, CURVE_ITERS, CURVE_SIZES = 32, 8, (1, 2, 4)
 # every stream count at which a later phase launches a kernel: HostScanner
-# (1), the fixture sessions (2, 3), entry() and the dry run's shards (4), the
-# serving loop (16), the uneven split (127, 129) and the serving shape; each
-# kernel is held against its plain version at each of them
-STREAM_COUNTS = (1, 2, 3, 4, 16, 127, 129, N_STREAMS)
+# and the bench's latency shapes (1), the fixture sessions (2, 3), entry()
+# and the dry run's shards (4), the serving loop and the detector on the
+# bench's 16 previews (16), the uneven split (127, 129), the serving shape,
+# the sweeps' batches and the scaling curve's shards; each kernel is held
+# against its plain version at each of them
+STREAM_COUNTS = tuple(sorted({
+    1, 2, 3, 4, 16, 127, 129, N_STREAMS, SWEEP_ARGS[2], CAMERA_SWEEP_ARGS[2],
+    *(CURVE_BATCH // n for n in CURVE_SIZES)}))
 WARMUP, STEPS = 3, 20
 KERNEL_REPS = 50
 SCORE_ATOL = 1e-5        # the reference's golden tolerance
@@ -212,8 +248,21 @@ WARP_F64_PER_PIXEL = 15
 WARP_F64_PER_STREAM = 42
 
 
+PHASE_STARTS = []   # (name, perf_counter) of each phase, in order
+
+
 def phase(name):
+    PHASE_STARTS.append((name, time.perf_counter()))
     print(f"[{name}]", flush=True)
+
+
+def phase_seconds():
+    """({phase: seconds}, total): each phase from its start to the next
+    one's, the last to now."""
+    ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
+    seconds = {name: round(end - start, 3)
+               for (name, start), end in zip(PHASE_STARTS, ends)}
+    return seconds, round(ends[-1] - PHASE_STARTS[0][1], 3)
 
 
 def event_ms(fn, reps):
@@ -716,9 +765,10 @@ def dest_rects(rng, n):
 def persp_cases(persp_qr, dev):
     """The kernel against its plain version, bit for bit, at each of
     PERSP_COUNTS streams, the last block (eight streams, two a warp) part
-    full but at 16 and 256: the degenerate sets (all zero, a repeated corner, an
-    inf and a NaN corner) first, then detector-realistic quads; with the
-    card's destination for every stream and with a rectangle a stream."""
+    full but at the multiples of 8: the degenerate sets (all zero, a
+    repeated corner, an inf and a NaN corner) first, then
+    detector-realistic quads; with the card's destination for every
+    stream and with a rectangle a stream."""
     rng = np.random.RandomState(3)
     guide = np.float32(GUIDE_LANDSCAPE)
     rep, inf, nan = guide.copy(), guide.copy(), guide.copy()
@@ -1744,23 +1794,6 @@ def checkpoint_phase(port, kernels, params, expiry, host, dates, dev):
           f"{after} frames to the recorded reads and analytics ring")
 
 
-def _camera_step_a_shard(port, params, states, shards, dev):
-    """The camera step has no sharded form of its own, as in the JAX
-    package: a full camera step on each shard of placed inputs. shards:
-    for each plane its list of shards. Returns (states, outputs) gathered
-    stream-major as make_sharded_step's step gathers them."""
-    from cardio_dmz_tpu_torch.parallel.mesh import gather_streams
-    from cardio_dmz_tpu_torch.parallel.streams import device_scope
-    outs = []
-    for k, state in enumerate(states):
-        with device_scope(dev):
-            states[k], res = port.batched_camera_step(
-                params, state, *(plane[k] for plane in shards),
-                scan_expiry=True)
-        outs.append(res)
-    return states, gather_streams(outs)
-
-
 def split_step_phase(port, kernels, params, expiry, dates, card, dev):
     phase("17 split step")
     from cardio_dmz_tpu_torch.parallel.mesh import gather_streams
@@ -1842,14 +1875,13 @@ def split_step_phase(port, kernels, params, expiry, dates, card, dev):
                                         scan_expiry=True)
 
     ref, unsplit = unsplit_run(camera_fn, planes)
-    _, place, init = port.make_sharded_step(params, [dev, dev],
-                                            scan_expiry=True, sizes=uneven)
+    step, place, init = port.make_sharded_camera_step(
+        params, [dev, dev], scan_expiry=True, sizes=uneven)
     reset_launches(kernels)
     states = init(N_STREAMS, now)
     drift = 0.0
     for t, frame in enumerate(planes):
-        states, res = _camera_step_a_shard(
-            port, params, states, [place(p) for p in frame], dev)
+        states, res = step(states, *(place(p) for p in frame))
         drift = max(drift, _assert_trees_equal(
             gather_streams(states), ref[t][0], f"camera step {t} state",
             SCORE_ATOL), _assert_trees_equal(
@@ -1862,7 +1894,7 @@ def split_step_phase(port, kernels, params, expiry, dates, card, dev):
                              f"unsplit {unsplit}")
     out["camera-full [cuda:0, cuda:0]"] = launches
     out["camera-full drift"] = drift
-    print(f"full camera step a shard ({uneven[0]} + {uneven[1]} streams, "
+    print(f"make_sharded_camera_step ({uneven[0]} + {uneven[1]} streams, "
           f"{n_camera} frames): integer and bool leaves equal the unsplit "
           f"step's, float leaves within {drift:.3g}; launches unsplit "
           f"{unsplit}, two shards {launches}")
@@ -2146,6 +2178,154 @@ def entry_phase(port, kernels, card, dev):
     return {"entry": at_entry, "dryrun": dryrun}
 
 
+# --- 21 tools ---------------------------------------------------------------
+
+# each bench shape's metric and unit, as the JAX package's bench prints them
+BENCH_METRICS = {"full": ("scan_pipeline_throughput", "frames/sec/chip"),
+                 "pan": ("scan_pipeline_throughput", "frames/sec/chip"),
+                 "camera": ("camera_pipeline_throughput", "frames/sec/chip"),
+                 "latency": ("scan_frame_latency_p50", "ms"),
+                 "camera_latency": ("camera_frame_latency_p50", "ms")}
+# camera sessions that may be accepted otherwise than in the JAX package's
+# sweep: its previews come from the float warp, whose pixels differ from
+# the JAX package's in a few 1/32 coordinate bins
+CAMERA_SWEEP_DIFFERENCES = 2
+
+
+def bench_step_launches(port, kernels, params, dev):
+    """Each kernel's launches in one bench step of each shape (after one
+    warm-up step); each shape's step in this process: median host-clock
+    ms of 10, device ms and device operations of one (torch.profiler, up
+    to three tries; None: not measured) and the device's idle share; and
+    the detector's found flags on the camera shape's 16 distinct
+    previews."""
+    from cardio_dmz_tpu_torch.tools import bench, bench_matrix
+    launches, split = {}, {}
+    for shape, argv in bench_matrix.SHAPES.items():
+        args = bench.parse_args(argv)
+        inputs = tuple(torch.from_numpy(a).to(dev)
+                       for a in bench.make_inputs(args)[0])
+        step = bench.make_step(params, args.camera, args.expiry)
+        states, _ = step(port.init_stream_states(
+            args.streams, dev, time.localtime()[:2]), *inputs)
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        step(states, *inputs)
+        torch.cuda.synchronize()
+        launches[shape] = read_launches(kernels)
+        want = {"digit_prep": 1, "warp_gather": int(args.camera),
+                "persp_qr": int(args.camera)}
+        if launches[shape] != want:
+            raise AssertionError(f"a {shape} bench step launched "
+                                 f"{launches[shape]}; want {want}")
+        host = host_ms(lambda: step(states, *inputs), 10)
+        split[shape] = {"host_ms": host, "device_ms": None,
+                        "device_ops": None, "idle": None}
+        for _ in range(3):
+            prof = profile_step(lambda: step(states, *inputs))
+            if prof["device_ops"]:
+                split[shape].update(
+                    device_ms=prof["device_ms"],
+                    device_ops=prof["device_ops"],
+                    idle=round(1 - prof["device_ms"] / host, 3))
+                break
+    y, cb, cr = (torch.from_numpy(a[:16]).to(dev)
+                 for a in bench.camera_inputs(N_STREAMS))
+    _, (found, _, _) = port.batched_camera_step(
+        params, port.init_stream_states(16, dev, time.localtime()[:2]), y,
+        cb, cr)
+    return launches, split, found.cpu().numpy()
+
+
+def _fixture_reads(fixture, prefix):
+    return [r if c else None for r, c in zip(fixture[f"{prefix}_reads"],
+                                             fixture[f"{prefix}_complete"])]
+
+
+def sweeps(port, dev):
+    """Both accuracy sweeps at their defaults against the JAX package's
+    reads; returns their reports, seconds and the camera sessions accepted
+    otherwise than in the JAX package's."""
+    from cardio_dmz_tpu_torch.tools import accuracy_sweep
+    fixture = load_npz(fixture_path(port, "sweep_session.npz"))
+    t0 = time.perf_counter()
+    pans, reads = accuracy_sweep.sweep_reads(*SWEEP_ARGS, quiet=True,
+                                             device=dev)
+    rect_s = time.perf_counter() - t0
+    rect = accuracy_sweep.report(pans, reads, SWEEP_ARGS[1])
+    want = _fixture_reads(fixture, "rect")
+    differ = [(k, pans[k], reads[k], want[k]) for k in range(len(pans))
+              if reads[k] != want[k]]
+    if pans != list(fixture["rect_pans"]) or differ or rect["wrong_reads"]:
+        raise AssertionError(f"rectified sweep: sessions read otherwise "
+                             f"than the JAX package's (session, pan, read, "
+                             f"JAX read): {differ[:10]}; report {rect}")
+    if rect != json.loads(str(fixture["rect_report"])):
+        raise AssertionError(f"rectified sweep report {rect}; the JAX "
+                             f"package's {fixture['rect_report']}")
+    t0 = time.perf_counter()
+    pans, reads = accuracy_sweep.camera_sweep_reads(*CAMERA_SWEEP_ARGS,
+                                                    quiet=True, device=dev)
+    camera_s = time.perf_counter() - t0
+    camera = {"mode": "camera", **accuracy_sweep.report(
+        pans, reads, CAMERA_SWEEP_ARGS[1])}
+    want = _fixture_reads(fixture, "camera")
+    differ = [(k, pans[k], reads[k], want[k]) for k in range(len(pans))
+              if (reads[k] is None) != (want[k] is None)]
+    if (pans != list(fixture["camera_pans"]) or camera["wrong_reads"]
+            or len(differ) > CAMERA_SWEEP_DIFFERENCES):
+        raise AssertionError(f"camera sweep: {camera}; sessions accepted "
+                             f"otherwise than the JAX package's (session, "
+                             f"pan, read, JAX read): {differ}")
+    return {"rect": rect, "rect_s": rect_s, "camera": camera,
+            "camera_s": camera_s, "camera_differ": differ,
+            "jax_camera": json.loads(str(fixture["camera_report"]))}
+
+
+def tools_phase(port, kernels, params, card, dev):
+    phase("21 tools")
+    from cardio_dmz_tpu_torch.tools import bench_matrix, scaling_curve
+    t0 = time.perf_counter()
+    matrix = bench_matrix.main(["--device", str(dev), "--timeout", "300"])
+    matrix_s = time.perf_counter() - t0
+    for shape, (metric, unit) in BENCH_METRICS.items():
+        rec = matrix[shape]
+        if (rec.get("metric"), rec.get("unit")) != (metric, unit) or not \
+                rec.get("value", 0) > 0:
+            raise AssertionError(f"bench {shape}: {rec}; want {metric} in "
+                                 f"{unit} above 0")
+    print(f"bench_matrix, five processes one after another, "
+          f"{matrix_s:.3f} s; card {card}")
+    launches, split, found = bench_step_launches(port, kernels, params, dev)
+    if not found.all():
+        raise AssertionError(f"the detector finds {int(found.sum())} of the "
+                             f"camera shape's 16 rendered previews (found "
+                             f"{found.astype(int).tolist()})")
+    print(f"one bench step a shape launches {launches}; a step in this "
+          f"process, host ms / device ms / device operations / idle share: "
+          f"{json.dumps(split)}; the detector finds {int(found.sum())} of "
+          f"the camera shape's 16 rendered previews (found "
+          f"{found.astype(int).tolist()}); card {card}")
+    swept = sweeps(port, dev)
+    print(f"rectified sweep, {SWEEP_ARGS[0]} sessions of {SWEEP_ARGS[1]} "
+          f"frames in {swept['rect_s']:.3f} s: every session reads as the "
+          f"JAX package's; {json.dumps(swept['rect'])}")
+    print(f"camera sweep, {CAMERA_SWEEP_ARGS[0]} sessions of "
+          f"{CAMERA_SWEEP_ARGS[1]} frames in {swept['camera_s']:.3f} s: "
+          f"{json.dumps(swept['camera'])}; the JAX package's "
+          f"{json.dumps(swept['jax_camera'])}; accepted otherwise than the "
+          f"JAX package's (session, pan, read, JAX read): "
+          f"{swept['camera_differ']}")
+    t0 = time.perf_counter()
+    curve = scaling_curve.run(CURVE_BATCH, CURVE_ITERS, camera=True,
+                              sizes=CURVE_SIZES)
+    print(f"scaling_curve over {CURVE_SIZES} x {dev} at {CURVE_BATCH} "
+          f"streams "
+          f"({time.perf_counter() - t0:.3f} s): {json.dumps(curve)}; "
+          f"card {card}")
+    return {"launches": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2189,7 +2369,10 @@ def main():
     loop = serving_loop_phase(port, kernels, card, dev)
     train_phase(port, kernels, card, dev)
     hooks = entry_phase(port, kernels, card, dev)
+    tools = tools_phase(port, kernels, params, card, dev)
 
+    seconds, total = phase_seconds()
+    print(f"phase seconds {json.dumps(seconds)}; total {total:.3f} s")
     print(card)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -2203,6 +2386,8 @@ def main():
         "launches_serving_loop": loop["launches"][name],
         "launches_entry": hooks["entry"][name],
         "launches_dryrun_multichip": hooks["dryrun"][name],
+        "launches_bench_step": {shape: n[name] for shape, n in
+                                tools["launches"].items()},
         **measured[name]} for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

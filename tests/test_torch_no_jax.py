@@ -1,8 +1,10 @@
 """The port runs with jax and PIL made unimportable, and never imports the
 JAX package: the PAN-only step, the camera step and both full (PAN +
 expiry) steps, the host side (HostScanner, a checkpoint saved and loaded,
-the frame pump built and used, the step split over a device list), and
-training (a batch of each generator, a fit step)."""
+the frame pump built and used, the step split over a device list),
+training (a batch of each generator, a fit step), and the tools (the
+renderer, the float warp, the bench, both accuracy sweeps, the scaling
+curve, the debug timers and trace, load_params)."""
 
 import os
 import subprocess
@@ -76,6 +78,40 @@ params = train.init_pan_conv_params(torch.Generator().manual_seed(0), "cpu")
 _, losses = train.fit(train.pan_conv_loss, params,
                       iter([train.synthetic_digit_batch(rng, 8)]), steps=1)
 assert np.isfinite(losses[0])
+
+# the tools, the renderer and the float warp
+import contextlib, io
+from cardio_dmz_tpu_torch import synthetic
+from cardio_dmz_tpu_torch.ops.warp import unwarp_card
+from cardio_dmz_tpu_torch.tools import (
+    accuracy_sweep, bench, bench_matrix, scaling_curve)
+from cardio_dmz_tpu_torch.utils import debug
+card = synthetic.render_frame(synthetic.safe_pan(np.random.default_rng(0)),
+                              style="emboss")
+quad = torch.tensor([[[106., 105.], [534., 105.], [106., 375.],
+                      [534., 375.]]])
+preview = torch.full((1, 480, 640), 50, dtype=torch.uint8)
+preview[0, 105:375, 106:534] = torch.from_numpy(card)
+assert unwarp_card(preview, quad, method="gather").shape == (1, 270, 428)
+assert accuracy_sweep.run_sweep(2, 2, 2, quiet=True,
+                                device="cpu")["sessions"] == 2
+assert accuracy_sweep.run_camera_sweep(1, 1, 1, quiet=True,
+                                       device="cpu")["mode"] == "camera"
+with contextlib.redirect_stdout(io.StringIO()):
+    assert bench.main(["--smoke", "--no-expiry", "--device", "cpu"])[
+        "metric"] == "scan_pipeline_throughput"
+assert set(scaling_curve.run(2, 1, sizes=(1, 2), devices=["cpu", "cpu"])) \
+    == {1, 2}
+assert "full" in bench_matrix.SHAPES
+timers = debug.Timers()
+timers.start(1)
+assert timers.stop(1) >= 0
+with tempfile.TemporaryDirectory() as tmp:
+    with debug.profile_trace(tmp) as trace, debug.annotate("region"):
+        torch.ones(2).sum()
+    assert os.path.getsize(trace) > 0
+assert port.models.load_params("vseg_mlp", "cpu")["hidden_w"].dtype == \
+    torch.float32
 
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("cardio_dmz_tpu", "jaxlib", "PIL"))

@@ -49,18 +49,28 @@ value_and_grad's loss and gradients on the first batch, and a three-step
 fit at lr 3e-3 on the three batches (its losses and final parameters);
 and __graft_entry__.entry()'s outputs on its four noise frames.
 
+sweep_session.npz, the accuracy sweeps: tools/accuracy_sweep.py's
+run_sweep at its defaults (512 sessions of 8 frames, batch 64, seed 2026)
+and run_camera_sweep at its (128 sessions of 8 frames, batch 32, seed
+2026): per session the true PAN, the complete flag and the accepted read,
+and each report as JSON.
+
 chip_smoke.py replays them through the port on the card, where neither
 JAX nor the renderer is installed. Write the files anew with
 
-    python tests/torch_fixture.py [smoke camera expiry host glyphs train]
+    python tests/torch_fixture.py [smoke camera expiry host glyphs train
+                                   sweep]
 
 (all of them when none is named).
 """
 
+import contextlib
 import functools
 import io
+import json
 import os
 import sys
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -93,6 +103,7 @@ EXPIRY_FIXTURE = os.path.join(_DATA, "expiry_session.npz")
 HOST_FIXTURE = os.path.join(_DATA, "host_session.npz")
 GLYPH_FIXTURE = os.path.join(_DATA, "train_glyphs.npz")
 TRAIN_FIXTURE = os.path.join(_DATA, "train_session.npz")
+SWEEP_FIXTURE = os.path.join(_DATA, "sweep_session.npz")
 NOW = (2026, 1)
 N_FRAMES = 6
 # (pan, y0, noise): two readable PANs, a wrong-Luhn PAN and an upside-down
@@ -804,12 +815,122 @@ def train_fixture_arrays():
     return {**train_run_arrays(), **entry_arrays()}
 
 
+# --- the accuracy sweeps -----------------------------------------------------
+
+SWEEP = (512, 8, 64, 2026)          # run_sweep's defaults
+CAMERA_SWEEP = (128, 8, 32, 2026)   # run_camera_sweep's
+
+
+@contextlib.contextmanager
+def recording_sweep():
+    """Inside the block the JAX package's tools/accuracy_sweep.py records
+    what it renders and what its jitted functions return: a dict with
+    "rendered", the (frames, pans) of each render_sessions /
+    render_camera_sessions call, and "jit", the (qualified name, args,
+    outputs) of each call of a function the tool jits (its step, and the
+    camera sweep's card placement, "render_camera_sessions.<locals>.place").
+    The tool itself runs unchanged."""
+    from cardio_dmz_tpu.tools import accuracy_sweep as tool
+
+    rec = {"rendered": [], "jit": []}
+    real_jit = jax.jit
+
+    def recorded(fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            rec["rendered"].append(out)
+            return out
+        return call
+
+    def jit(fn, *args, **kwargs):
+        compiled = real_jit(fn, *args, **kwargs)
+        name = getattr(fn, "__qualname__", "")
+        if not name.startswith(("run_sweep.", "run_camera_sweep.",
+                                "render_camera_sessions.")):
+            return compiled
+
+        def call(*call_args):
+            out = compiled(*call_args)
+            rec["jit"].append((name, call_args, out))
+            return out
+        return call
+
+    with mock.patch.object(tool, "render_sessions",
+                           recorded(tool.render_sessions)), \
+            mock.patch.object(tool, "render_camera_sessions",
+                              recorded(tool.render_camera_sessions)), \
+            mock.patch.object(jax, "jit", jit):
+        yield rec
+
+
+def _jax_reads(state, n):
+    """The first n streams' accepted reads of a JAX ScannerState batch
+    (None where the number did not complete), as the tool reads them."""
+    complete = np.asarray(state.number_complete)[:n]
+    digits = np.asarray(state.completed_digits)[:n]
+    n_num = np.asarray(state.completed_n)[:n]
+    return ["".join(map(str, digits[i][:n_num[i]])) if complete[i] else None
+            for i in range(n)]
+
+
+@functools.lru_cache(maxsize=None)
+def jax_sweep(n_sessions, frames_per_session, batch, seed):
+    """The JAX run_sweep: (report, pans, reads), reads session for
+    session."""
+    from cardio_dmz_tpu.tools.accuracy_sweep import run_sweep
+    with recording_sweep() as rec:
+        report = run_sweep(n_sessions, frames_per_session, batch, seed,
+                           quiet=True)
+    pans, reads = [], []
+    for (_, batch_pans), (_, _, (state, _)) in zip(rec["rendered"],
+                                                    rec["jit"]):
+        pans += batch_pans
+        reads += _jax_reads(state, len(batch_pans))
+    return report, pans, reads
+
+
+@functools.lru_cache(maxsize=None)
+def jax_camera_sweep(n_sessions, frames_per_session, batch, seed):
+    """The JAX run_camera_sweep: (report, pans, reads, previews (S, T,
+    480, 640) u8, quads (S * T, 4, 2) f32 as its placement took them)."""
+    from cardio_dmz_tpu.tools.accuracy_sweep import run_camera_sweep
+    with recording_sweep() as rec:
+        report = run_camera_sweep(n_sessions, frames_per_session, batch,
+                                  seed, quiet=True)
+    steps = [out for name, _, out in rec["jit"]
+             if name.startswith("run_camera_sweep.")]
+    finals = steps[frames_per_session - 1::frames_per_session]
+    pans, reads = [], []
+    for (_, batch_pans), (state, _) in zip(rec["rendered"], finals):
+        pans += batch_pans
+        reads += _jax_reads(state, len(batch_pans))
+    quads = np.concatenate([np.asarray(args[1]) for name, args, _ in
+                            rec["jit"] if name.startswith("render_camera")])
+    previews = np.concatenate([ys for ys, _ in rec["rendered"]])
+    return report, pans, reads, previews, quads
+
+
+def _sweep_arrays(prefix, report, pans, reads):
+    return {f"{prefix}_pans": np.array(pans),
+            f"{prefix}_complete": np.array([r is not None for r in reads]),
+            f"{prefix}_reads": np.array([r or "" for r in reads]),
+            f"{prefix}_report": np.array(json.dumps(report))}
+
+
+def sweep_fixture_arrays():
+    """What sweep_session.npz holds: "rect_*" from run_sweep(*SWEEP),
+    "camera_*" from run_camera_sweep(*CAMERA_SWEEP)."""
+    return {**_sweep_arrays("rect", *jax_sweep(*SWEEP)),
+            **_sweep_arrays("camera", *jax_camera_sweep(*CAMERA_SWEEP)[:3])}
+
+
 WRITERS = {"smoke": (FIXTURE, fixture_arrays),
            "camera": (CAMERA_FIXTURE, camera_fixture_arrays),
            "expiry": (EXPIRY_FIXTURE, expiry_fixture_arrays),
            "host": (HOST_FIXTURE, host_fixture_arrays),
            "glyphs": (GLYPH_FIXTURE, glyph_arrays),
-           "train": (TRAIN_FIXTURE, train_fixture_arrays)}
+           "train": (TRAIN_FIXTURE, train_fixture_arrays),
+           "sweep": (SWEEP_FIXTURE, sweep_fixture_arrays)}
 
 
 if __name__ == "__main__":
