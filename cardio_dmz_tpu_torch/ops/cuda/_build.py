@@ -6,12 +6,18 @@ with nvcc for sm_90a into cardio_dmz_tpu_torch/_build/lib<name>.so (the
 first time it launches, or again when the source is newer than the
 library), loads it with ctypes and raises on an nvcc failure or a launch
 code other than 0. Nothing is built at import: this host may have no nvcc.
+counted_launch is the body of each kernel's wrapper, on either route: it
+reports the launch's work to a tools/profiling.WorkCounter.
 """
 
+import contextlib
 import ctypes
 import os
 import subprocess
 import threading
+
+import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -78,3 +84,30 @@ class CudaKernel:
         rc = self._load()(*args)
         if rc != 0:
             raise RuntimeError(f"{self._fn_name} failed: cudaError {rc}")
+
+
+@contextlib.contextmanager
+def counted_launch(name, work, *args):
+    """The body of a kernel wrapper, on either route. Every work counter in
+    the dispatch-mode stack (tools/profiling.WorkCounter) is told this
+    launch's work, work(*args) -> (flops, bytes, kind), and counts none of
+    the aten ops run inside the block or by the formula: so a step counts
+    the same on the CPU, where the plain version runs, and on the card,
+    where the kernel runs unseen by a dispatch mode. With no counter active
+    the formula is not evaluated. The block is a torch.profiler region
+    named "<name> kernel", so that a trace ties the kernel, which no aten
+    op launches, to its wrapper."""
+    counters = [m for m in _get_current_dispatch_mode_stack()
+                if hasattr(m, "add_kernel")]
+    for counter in counters:
+        counter.paused += 1
+    try:
+        if counters:
+            flops, n_bytes, kind = work(*args)
+            for counter in counters:
+                counter.add_kernel(name, flops, n_bytes, kind)
+        with torch.profiler.record_function(f"{name} kernel"):
+            yield
+    finally:
+        for counter in counters:
+            counter.paused -= 1

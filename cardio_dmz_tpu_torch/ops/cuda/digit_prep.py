@@ -29,7 +29,7 @@ import torch
 from ...constants import CARD_WIDTH, NUMBER_HEIGHT, NUMBER_WIDTH
 from ..morph import morph_grad3_2d_cross_u8
 from ..stats import equalize_hist
-from ._build import CudaKernel
+from ._build import CudaKernel, counted_launch
 
 N_CELLS = 16
 
@@ -55,6 +55,22 @@ def _check(strip, offsets):
                          f"{offsets.device}")
     if not (strip.is_contiguous() and offsets.is_contiguous()):
         raise ValueError("strip and offsets must be contiguous")
+
+
+def work(strip, offsets):
+    """(flops, bytes, kind) of one launch on these inputs: the bytes it must
+    move (the strip columns some cell covers, 27 rows each, the offsets and
+    the f32 cells written) and its one f32 division a cell pixel."""
+    s = offsets.shape[0]
+    cols = (offsets.to(torch.int64).clamp(0, CARD_WIDTH - NUMBER_WIDTH)[
+        :, :, None] + torch.arange(NUMBER_WIDTH, device=offsets.device)
+            ).reshape(s, -1)
+    covered = torch.zeros((s, CARD_WIDTH), dtype=torch.bool,
+                          device=offsets.device)
+    covered.scatter_(1, cols, True)
+    cells = s * N_CELLS * NUMBER_HEIGHT * NUMBER_WIDTH
+    return (cells, int(covered.sum()) * NUMBER_HEIGHT + offsets.numel() * 4
+            + cells * 4, "f32")
 
 
 def prepare_cells(cells):
@@ -90,17 +106,19 @@ def prepare_digit_cells(strip, offsets):
     kernel; a CPU tensor through the plain version."""
     global LAUNCHES
     _check(strip, offsets)
-    if strip.device.type == "cpu":
-        return prepare_digit_cells_reference(strip, offsets)
-    if strip.device.type != "cuda":
-        raise ValueError(f"no digit-prep route for {strip.device}")
-    s = strip.shape[0]
-    out = torch.empty((s, N_CELLS, NUMBER_HEIGHT, NUMBER_WIDTH),
-                      dtype=torch.float32, device=strip.device)
-    if s == 0:
+    with counted_launch("digit_prep", work, strip, offsets):
+        if strip.device.type == "cpu":
+            return prepare_digit_cells_reference(strip, offsets)
+        if strip.device.type != "cuda":
+            raise ValueError(f"no digit-prep route for {strip.device}")
+        s = strip.shape[0]
+        out = torch.empty((s, N_CELLS, NUMBER_HEIGHT, NUMBER_WIDTH),
+                          dtype=torch.float32, device=strip.device)
+        if s == 0:
+            return out
+        with torch.cuda.device(strip.device):
+            KERNEL.launch(strip.data_ptr(), offsets.data_ptr(),
+                          out.data_ptr(), s,
+                          torch.cuda.current_stream().cuda_stream)
+        LAUNCHES += 1
         return out
-    with torch.cuda.device(strip.device):
-        KERNEL.launch(strip.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-                      s, torch.cuda.current_stream().cuda_stream)
-    LAUNCHES += 1
-    return out

@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from ._build import CudaKernel
+from ._build import CudaKernel, counted_launch
 
 KERNEL = CudaKernel("persp_qr", "persp_qr_launch",
                     [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
@@ -132,6 +132,88 @@ def persp_transform_reference(src, dst):
     return torch.cat([c, torch.ones_like(c[:, :1])], dim=1).reshape(s, 3, 3)
 
 
+def persp_qr_ops(cycles=None):
+    """A model of one stream's solve in Eigen 3.2's f32 order (the order
+    that csrc/persp_qr.cu and persp_transform_reference keep, whichever
+    lane does an operation), on a system with no degenerate step:
+    (operations, chain, on_chain); tests/test_torch_warp.py holds its
+    count against a closed form. operations counts every multiply, add,
+    divide and square root; chain is the longest run of them each of
+    which waits for the one before,
+    each kind weighted by cycles[kind] ("add" for adds and subtractions,
+    "mul", "div", "sqrt"; 1 each by default, which counts operations), so
+    that no bit-exact order of this solve can finish sooner; on_chain
+    counts each kind on that run."""
+    cycles = cycles or {"add": 1, "mul": 1, "div": 1, "sqrt": 1}
+    n_ops = [0]
+    leaf = (0, {})
+
+    def op(kind, *args):       # a value is (chain cycles, kinds on it)
+        n_ops[0] += 1
+        length, kinds = max(args, key=lambda v: v[0])
+        return length + cycles[kind], {**kinds, kind: kinds.get(kind, 0) + 1}
+
+    def mul(x, y):
+        return op("mul", x, y)
+
+    def add(x, y):
+        return op("add", x, y)
+
+    def redux(p):
+        if len(p) < 4:
+            r = p[0]
+        else:
+            r, p = add(add(p[0], p[2]), add(p[1], p[3])), p[3:]
+        for v in p[1:]:
+            r = add(r, v)
+        return r
+
+    n = 8
+    a = [[leaf] * n for _ in range(n)]
+    c = [leaf] * n
+    for i in range(n):
+        a[i][6], a[i][7] = mul(leaf, leaf), mul(leaf, leaf)
+    taus = []
+    for k in range(n - 1):      # the last step is degenerate: tau 0
+        nt = n - 1 - k
+        c0 = a[k][k]
+        tsq = redux([mul(a[i][k], a[i][k]) for i in range(k + 1, n)])
+        beta = op("sqrt", add(mul(c0, c0), tsq))
+        d = add(c0, beta)
+        ess = [op("div", a[i][k], d) for i in range(k + 1, n)]
+        tau = op("div", add(beta, c0), beta)
+        taus.append((tau, ess))
+        a[k][k] = beta
+        scaled = [mul(tau, e) for e in ess]
+        for j in range(k + 1, n):
+            tmp = add(redux([mul(ess[i], a[k + 1 + i][j])
+                             for i in range(nt)]), a[k][j])
+            a[k][j] = add(a[k][j], mul(tau, tmp))
+            for i in range(nt):
+                a[k + 1 + i][j] = add(a[k + 1 + i][j], mul(scaled[i], tmp))
+    for k, (tau, ess) in enumerate(taus):              # c = Q^T b
+        t = add(redux([mul(ess[i], c[k + 1 + i])
+                       for i in range(len(ess))]), c[k])
+        c[k] = add(c[k], mul(tau, t))
+        for i in range(len(ess)):
+            c[k + 1 + i] = add(c[k + 1 + i], mul(mul(tau, ess[i]), t))
+    c[n - 1] = mul(c[n - 1], add(leaf, leaf))          # H_7: 1 - tau
+    for j in range(n - 1, -1, -1):                     # back-substitution
+        c[j] = op("div", c[j], a[j][j])
+        for i in range(j):
+            c[i] = add(c[i], mul(c[j], a[i][j]))
+    chain, on_chain = max(c, key=lambda v: v[0])
+    return n_ops[0], chain, on_chain
+
+
+def work(src, dst):
+    """(flops, bytes, kind) of one launch on these inputs: the corners read,
+    the homographies written; persp_qr_ops' f32 operations a stream."""
+    s = src.shape[0]
+    return (s * persp_qr_ops()[0],
+            src.numel() * 4 + dst.numel() * 4 + s * 9 * 4, "f32")
+
+
 def eigen_persp_transform_batched(src, dst):
     """Every stream's src -> dst homography.
 
@@ -142,17 +224,18 @@ def eigen_persp_transform_batched(src, dst):
     plain version."""
     global LAUNCHES
     _check(src, dst)
-    if src.device.type == "cpu":
-        return persp_transform_reference(src, dst)
-    if src.device.type != "cuda":
-        raise ValueError(f"no persp-QR route for {src.device}")
-    s = src.shape[0]
-    out = torch.empty((s, 3, 3), dtype=torch.float32, device=src.device)
-    if s == 0:
+    with counted_launch("persp_qr", work, src, dst):
+        if src.device.type == "cpu":
+            return persp_transform_reference(src, dst)
+        if src.device.type != "cuda":
+            raise ValueError(f"no persp-QR route for {src.device}")
+        s = src.shape[0]
+        out = torch.empty((s, 3, 3), dtype=torch.float32, device=src.device)
+        if s == 0:
+            return out
+        with torch.cuda.device(src.device):
+            KERNEL.launch(src.data_ptr(), dst.data_ptr(), out.data_ptr(), s,
+                          0 if dst.dim() == 2 else 8,
+                          torch.cuda.current_stream().cuda_stream)
+        LAUNCHES += 1
         return out
-    with torch.cuda.device(src.device):
-        KERNEL.launch(src.data_ptr(), dst.data_ptr(), out.data_ptr(), s,
-                      0 if dst.dim() == 2 else 8,
-                      torch.cuda.current_stream().cuda_stream)
-    LAUNCHES += 1
-    return out

@@ -35,7 +35,7 @@ import ctypes
 import torch
 
 from ..persp import warp_coord_maps
-from ._build import CudaKernel
+from ._build import CudaKernel, counted_launch
 
 KERNEL = CudaKernel("warp_gather", "warp_exact_launch",
                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
@@ -46,6 +46,12 @@ KERNEL = CudaKernel("warp_gather", "warp_exact_launch",
 LAUNCHES = 0
 
 _MAX_STREAMS = 65535   # the launch grid's y dimension
+# float64 operations per output pixel: three linear forms (a x + b y) + c at
+# 2 multiplies and 2 adds each, 32 / den, and the two products num * W
+F64_PER_PIXEL = 15
+# per stream: 18 multiplies and 9 subtractions of the cofactors, 3 + 2 of
+# the determinant, 1 / det, 9 products
+F64_PER_STREAM = 42
 
 
 def _check(image, m, out_shape, transpose):
@@ -66,6 +72,36 @@ def _check(image, m, out_shape, transpose):
                          f"{m.device}")
     if not (image.is_contiguous() and m.is_contiguous()):
         raise ValueError("image and homographies must be contiguous")
+
+
+def tapped_pixels(image, m, out_shape, transpose=False):
+    """How many frame pixels the warp's taps read, over all streams."""
+    s, in_h, in_w = image.shape
+    xq, yq = warp_coord_maps(m, out_shape)
+    if transpose:
+        xq, yq = yq, xq
+    x0, y0 = (xq >> 5).reshape(s, -1), (yq >> 5).reshape(s, -1)
+    read = torch.zeros((s, in_h * in_w + 1), dtype=torch.bool,
+                       device=m.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            x, y = x0 + dx, y0 + dy
+            inside = (x >= 0) & (x < in_w) & (y >= 0) & (y < in_h)
+            # taps outside the frame land on the spare last column
+            idx = torch.where(inside, y * in_w + x, in_h * in_w)
+            read.scatter_(1, idx.to(torch.int64), True)
+    return int(read[:, :-1].sum())
+
+
+def work(image, m_src_to_dst, out_shape, transpose=False):
+    """(flops, bytes, kind) of one launch on these inputs: the frame pixels
+    its taps read, the homographies and the card written; the float64
+    operations of the maps."""
+    s = image.shape[0]
+    pixels = s * out_shape[0] * out_shape[1]
+    return (pixels * F64_PER_PIXEL + s * F64_PER_STREAM,
+            tapped_pixels(image, m_src_to_dst, out_shape, transpose)
+            + m_src_to_dst.numel() * 4 + pixels, "f64")
 
 
 def warp_gather_reference(image, xq, yq):
@@ -113,25 +149,29 @@ def warp_perspective_exact(image, m_src_to_dst, out_shape, transpose=False):
     the plain route."""
     global LAUNCHES
     _check(image, m_src_to_dst, out_shape, transpose)
-    if image.device.type == "cpu":
-        return warp_perspective_reference(image, m_src_to_dst, out_shape,
-                                          transpose)
-    if image.device.type != "cuda":
-        raise ValueError(f"no warp route for {image.device}")
-    s, in_h, in_w = image.shape
-    out_h, out_w = out_shape
-    out = torch.empty((s, out_h, out_w), dtype=torch.uint8,
-                      device=image.device)
-    if s == 0:
+    with counted_launch("warp_gather", work, image, m_src_to_dst, out_shape,
+                        transpose):
+        if image.device.type == "cpu":
+            return warp_perspective_reference(image, m_src_to_dst, out_shape,
+                                              transpose)
+        if image.device.type != "cuda":
+            raise ValueError(f"no warp route for {image.device}")
+        s, in_h, in_w = image.shape
+        out_h, out_w = out_shape
+        out = torch.empty((s, out_h, out_w), dtype=torch.uint8,
+                          device=image.device)
+        if s == 0:
+            return out
+        if s > _MAX_STREAMS:
+            raise ValueError(f"at most {_MAX_STREAMS} streams a launch; "
+                             f"got {s}")
+        if in_h * in_w >= 2**31:
+            raise ValueError(f"a frame must hold fewer than 2^31 pixels; got "
+                             f"{in_h}x{in_w}")
+        with torch.cuda.device(image.device):
+            KERNEL.launch(image.data_ptr(), m_src_to_dst.data_ptr(),
+                          out.data_ptr(), s, in_h, in_w, out_h, out_w,
+                          int(transpose),
+                          torch.cuda.current_stream().cuda_stream)
+        LAUNCHES += 1
         return out
-    if s > _MAX_STREAMS:
-        raise ValueError(f"at most {_MAX_STREAMS} streams a launch; got {s}")
-    if in_h * in_w >= 2**31:
-        raise ValueError(f"a frame must hold fewer than 2^31 pixels; got "
-                         f"{in_h}x{in_w}")
-    with torch.cuda.device(image.device):
-        KERNEL.launch(image.data_ptr(), m_src_to_dst.data_ptr(),
-                      out.data_ptr(), s, in_h, in_w, out_h, out_w,
-                      int(transpose), torch.cuda.current_stream().cuda_stream)
-    LAUNCHES += 1
-    return out

@@ -2,16 +2,19 @@
 
 Counterpart of the JAX package's synthetic.py (numpy + PIL): Luhn-valid
 PANs and 270x428 rectified card frames with the PAN row drawn flat or
-embossed, plus the expiry slash stroke. Every digit mask it draws is one
-of the ten PAN glyphs, so it takes them from the glyph table of
-train/glyphs.py (data/train_glyphs.npz, written from the JAX package's own
-rendering) with the relief shading kept there; the frames come out bit
+embossed, the expiry slash stroke, and dated cards (render_text_small,
+render_frame_with_expiry). Every digit mask of the PAN row is one of the
+ten PAN glyphs, so it takes them from the glyph table of train/glyphs.py
+(data/train_glyphs.npz, written from the JAX package's own rendering) with
+the relief shading kept there. The expiry text's digits come from
+data/expiry_glyphs.npz: each one's coverage mask as PIL's FreeType
+rasterizer draws it, and its offset and text box, composited here with
+PIL's own blend of a mask into an 8-bit image. The frames come out bit
 for bit as the JAX package draws them, on a machine without PIL.
-
-Left out: render_text_small and render_frame_with_expiry, which composite
-expiry text with PIL's font rasterizer at positions the caller picks; the
-fixtures carry the expiry cards the port's checks need.
 """
+
+import functools
+import os
 
 import numpy as np
 
@@ -20,6 +23,8 @@ from .train.glyphs import CARD_BG, _digit_mask, _emboss_delta
 
 DIGIT_FILL = 60
 SAFE_DIGITS = tuple(range(10))
+EXPIRY_GLYPHS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "data", "expiry_glyphs.npz")
 
 
 def render_digit_cell(digit, seed=0, fill=DIGIT_FILL, bg=CARD_BG,
@@ -122,3 +127,88 @@ def draw_expiry_slash(y, top, left, w=7, h=15, fill=DIGIT_FILL, thick=3,
         c = left + int(round((h - 1 - r) * (w - 1) / (h - 1)))
         y[top + r, c:c + thick] = fill
     return y
+
+
+@functools.lru_cache(maxsize=None)
+def _expiry_glyphs():
+    """[(coverage mask (h, w) uint8, (dx, dy) of the mask from the drawing
+    position, text box (x0, y0, x1, y1) at the origin)] of the digits 0-9
+    in the expiry font (DejaVu Sans Mono Bold 18)."""
+    with np.load(EXPIRY_GLYPHS) as t:
+        return [(t["mask"][d, :h, :w], tuple(t["offset"][d]),
+                 tuple(t["bbox"][d]))
+                for d, (h, w) in enumerate(t["mask_shape"])]
+
+
+def _blend_mask(out, mask, x, y, ink):
+    """PIL's draw_bitmap of an 8-bit coverage mask into an 8-bit image at
+    (x, y), clipped to the image: each pixel becomes
+    (out * (255 - m) + ink * m) / 255, rounded as PIL's DIV255 rounds."""
+    h, w = mask.shape
+    y0, x0 = max(y, 0), max(x, 0)
+    y1, x1 = min(y + h, out.shape[0]), min(x + w, out.shape[1])
+    if y0 >= y1 or x0 >= x1:
+        return
+    m = mask[y0 - y:y1 - y, x0 - x:x1 - x].astype(np.int32)
+    t = out[y0:y1, x0:x1].astype(np.int32) * (255 - m) + ink * m + 128
+    out[y0:y1, x0:x1] = ((t >> 8) + t) >> 8
+
+
+def render_text_small(y, text, y0, x0, size=15, fill=DIGIT_FILL, spacing=None,
+                      style="flat"):
+    """Render small text (an expiry "08/27") onto a copy of frame y.
+
+    text holds digits, "/" and " ". Digits use the reference-tuned expiry
+    font, centred in an 11x16 box on a `spacing`-pitch grid (None = 13);
+    "/" is the embossed slash stroke; a space draws nothing (size was the
+    JAX package's font size for other characters, and a space leaves no
+    ink in any). style="emboss": relief glyphs from the same ink masks
+    (_emboss_delta) instead of flat ink. Another character raises a
+    ValueError."""
+    if spacing is None:
+        spacing = 13
+    base = np.asarray(y)
+    emboss = style == "emboss"
+    canvas = np.zeros(base.shape, np.uint8) if emboss else base.copy()
+    glyphs = _expiry_glyphs()
+    slash_positions = []
+    for i, ch in enumerate(text):
+        if ch == "/":
+            slash_positions.append(i)
+            continue
+        if ch == " ":
+            continue
+        if ch not in "0123456789":
+            raise ValueError(f"render_text_small draws digits, '/' and ' '; "
+                             f"got {ch!r} in {text!r}")
+        mask, (dx, dy), (bx0, by0, bx1, by1) = glyphs[int(ch)]
+        # centre the ink in an 11x16 window on the spacing grid
+        x = x0 + i * spacing + (11 - (bx1 - bx0)) // 2 - bx0
+        yy = y0 + (16 - (by1 - by0)) // 2 - by0
+        _blend_mask(canvas, mask, x + dx, yy + dy, 255 if emboss else fill)
+    if emboss:
+        m = canvas.astype(np.float32) / 255.0
+        out = np.clip(base.astype(np.int32) + _emboss_delta(m),
+                      0, 255).astype(np.uint8)
+    else:
+        out = canvas
+    for i in slash_positions:
+        out = draw_expiry_slash(out, y0, x0 + i * spacing + 1, fill=fill,
+                                style=style)
+    return out
+
+
+def render_frame_with_expiry(pan, expiry_text, y0=150, width=18.0, offset=30,
+                             expiry_y=None, expiry_x=120, seed=0, bg=CARD_BG,
+                             noise=1, expiry_size=15, expiry_spacing=13,
+                             style="flat"):
+    """Card frame with a PAN row and an expiry line below it (expiry_y
+    defaults to 35 rows below the PAN row). style="emboss": both lines as
+    relief glyphs."""
+    y = render_frame(pan, y0=y0, width=width, offset=offset, seed=seed,
+                     bg=bg, noise=noise, style=style)
+    if expiry_y is None:
+        expiry_y = y0 + 27 + 35
+    return render_text_small(y, expiry_text, expiry_y, expiry_x,
+                             size=expiry_size, spacing=expiry_spacing,
+                             style=style)

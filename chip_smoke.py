@@ -2,8 +2,8 @@
 step on rectified cards, the camera step in front of it, both with the
 in-graph expiry read (the full steps), the host side of serving around
 them (the single-stream HostScanner, checkpoints, the step split over a
-device list, the serving loop behind the frame pump), training, and the
-entry hooks (entry, dryrun_multichip).
+device list, the serving loop behind the frame pump), training, the
+entry hooks (entry, dryrun_multichip), the tools, and the profilers.
 
     python3 chip_smoke.py            (from the repo root, on a CUDA machine)
 
@@ -164,6 +164,23 @@ without printing its last line:
             JAX package's (each one printed: the previews come from the
             float warp, not the JAX package's bits); tools/scaling_curve.py
             over 1, 2 and 4 copies of cuda:0, with the camera step
+22. profilers
+            each stage profiler of cardio_dmz_tpu_torch/tools/ in this
+            process at its defaults (64 streams), 3 timed calls a stage:
+            profile_pan, profile_expiry (and --fine), profile_camera,
+            profile_camera_ablate, profile_warp; every stage line present
+            with a time above 0; roofline.py's three records at 256
+            streams, each with every key of the JAX tool's record and the
+            port's, every share under 100%; each kernel's launches in one
+            roofline step of each shape; stage_bytes.py at 256 streams,
+            each full graph counting more bytes than its ablations;
+            buffer_hogs.py --cycles on the camera graph, under a tenth of
+            its device time tied to no port source; one step of each
+            stage_bytes graph and of the roofline's camera shape counted at
+            4 streams on cuda:0 and on the CPU: equal, op by op; the
+            expiry fixture's two dated cards drawn by the PIL-free
+            renderer equal the JAX-rendered frames, and the full step
+            reads their PANs and dates
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times from
 kernel_ms: many calls captured in one CUDA graph and replayed, so the
@@ -178,8 +195,9 @@ difference from the plain version, its time, the plain version's and one
 PyTorch call's where one computes the same function, and its bound: the
 larger of the bytes it must move over the card's memory rate and its
 operations over the card's peak rate; its launches in phase 20's entry()
-and dry run; and its launches in one bench step of each shape (phase
-21). Before it come a line with every phase's seconds and the total, and
+and dry run; its launches in one bench step of each shape (phase 21);
+and its launches in one roofline step of each shape (phase 22). Before
+it come a line with every phase's seconds and the total, and
 the card's name and power limit. The last line is {"ok": true,
 "device": {...}}.
 Needs no network, no JAX and no PIL; builds into
@@ -198,6 +216,8 @@ from unittest import mock
 import numpy as np
 import torch
 
+from cardio_dmz_tpu_torch.tools.profiling import bound, profile_step
+
 N_STREAMS = 256          # the serving shape of tools/bench.py
 # phase 21's launch shapes: the accuracy sweeps at their defaults (sessions,
 # frames, batch, seed; every batch, the last one padded, is one launch at
@@ -206,15 +226,22 @@ N_STREAMS = 256          # the serving shape of tools/bench.py
 SWEEP_ARGS = (512, 8, 64, 2026)          # run_sweep's defaults
 CAMERA_SWEEP_ARGS = (128, 8, 32, 2026)   # run_camera_sweep's
 CURVE_BATCH, CURVE_ITERS, CURVE_SIZES = 32, 8, (1, 2, 4)
+# phase 22's: the stage profilers' default streams and the timed calls a
+# stage, the roofline's, stage_bytes' and buffer_hogs' default streams, and
+# the streams of the count on the card against the CPU
+PROFILE_STREAMS, PROFILE_ITERS = 64, 3
+ROOFLINE_STREAMS = 256
+COUNT_STREAMS = 4
 # every stream count at which a later phase launches a kernel: HostScanner
 # and the bench's latency shapes (1), the fixture sessions (2, 3), entry()
 # and the dry run's shards (4), the serving loop and the detector on the
 # bench's 16 previews (16), the uneven split (127, 129), the serving shape,
-# the sweeps' batches and the scaling curve's shards; each kernel is held
-# against its plain version at each of them
+# the sweeps' batches, the scaling curve's shards and phase 22's counts;
+# each kernel is held against its plain version at each of them
 STREAM_COUNTS = tuple(sorted({
     1, 2, 3, 4, 16, 127, 129, N_STREAMS, SWEEP_ARGS[2], CAMERA_SWEEP_ARGS[2],
-    *(CURVE_BATCH // n for n in CURVE_SIZES)}))
+    *(CURVE_BATCH // n for n in CURVE_SIZES), PROFILE_STREAMS,
+    ROOFLINE_STREAMS, COUNT_STREAMS}))
 WARMUP, STEPS = 3, 20
 KERNEL_REPS = 50
 SCORE_ATOL = 1e-5        # the reference's golden tolerance
@@ -222,6 +249,9 @@ TELEMETRY_RTOL = 1e-5    # focus/brightness: sums in another order
 CARD_SHAPE = (270, 428)
 FRAME_SHAPE = (480, 640)
 CARD_DEST = [[0.0, 0.0], [427.0, 0.0], [0.0, 269.0], [427.0, 269.0]]
+# where render_frame_with_expiry puts the fixture's dated cards' lines
+# (tests/torch_fixture.py draws them so)
+DATED_CARD = dict(y0=150, offset=35, expiry_y=212, expiry_x=120, noise=1)
 # the guide rect's corners in the warp's corner order (tl, tr, bl, br for
 # landscape; bl, tl, br, tr for portrait); detector-realistic quads lie
 # within +-12 px of them (tests/test_pallas.py)
@@ -235,17 +265,6 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "persp_qr": ("cardio_dmz_tpu_torch/csrc/persp_qr.cu",
                  "cardio_dmz_tpu/ops/pallas/persp_qr.py:168"),
 }
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s; float32 and float64
-# outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
-# float64 operations of the warp per output pixel: three linear forms
-# (a x + b y) + c at 2 multiplies and 2 adds each, 32 / den, and the two
-# products num * W
-WARP_F64_PER_PIXEL = 15
-# per stream: 18 multiplies and 9 subtractions of the cofactors, 3 + 2 of
-# the determinant, 1 / det, 9 products
-WARP_F64_PER_STREAM = 42
 
 
 PHASE_STARTS = []   # (name, perf_counter) of each phase, in order
@@ -331,15 +350,6 @@ def kernel_ms(fn, reps=KERNEL_REPS):
         times.append(start.elapsed_time(end) / reps)
     del graph
     return statistics.median(times), "graph"
-
-
-def bound(n_bytes, flops=0.0, kind="f32"):
-    """(bound_ms, bound_by): the larger of n_bytes over the memory rate and
-    flops over the peak rate of their type."""
-    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * flops / PEAK_FLOPS[kind]
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
-                                                           "operations")
 
 
 def device_phase():
@@ -432,17 +442,6 @@ def digit_strips(port, fixture, dev):
             "equal": (torch.full_like(noise, 77), offsets)}
 
 
-def digit_prep_bytes(offsets):
-    """Bytes the digit prep must move for these offsets: the strip columns
-    that some cell covers (27 rows each), the offsets, the f32 cells."""
-    s = offsets.shape[0]
-    cols = (offsets.to(torch.int64).clamp(0, 409)[:, :, None]
-            + torch.arange(19, device=offsets.device)).reshape(s, -1)
-    covered = torch.zeros((s, 428), dtype=torch.bool, device=offsets.device)
-    covered.scatter_(1, cols, True)
-    return int(covered.sum()) * 27 + offsets.numel() * 4 + s * 16 * 513 * 4
-
-
 def kernel_phase(port, digit_prep, fixture, dev):
     phase("3 kernel")
     inputs = digit_strips(port, fixture, dev)
@@ -468,7 +467,7 @@ def kernel_phase(port, digit_prep, fixture, dev):
     strips, offsets = inputs["real"]
     plain_ms, method = kernel_ms(
         lambda: digit_prep.prepare_digit_cells_reference(strips, offsets))
-    bound_ms, bound_by = bound(digit_prep_bytes(offsets))
+    bound_ms, bound_by = bound(*digit_prep.work(strips, offsets))
     print(f"digit_prep at {N_STREAMS}x16 cells: equal bit for bit on noise, "
           f"real and all-equal strips, and at {STREAM_COUNTS[:-1]} streams "
           f"of each; kernel ms " + ", ".join(
@@ -646,80 +645,6 @@ def persp_systems(src, dst):
     return torch.cat([top, bot], 1), torch.cat([dx, dy], 1)[:, :, None]
 
 
-def persp_qr_ops(cycles=None):
-    """A model of one stream's solve in Eigen 3.2's f32 order (the order
-    that csrc/persp_qr.cu and persp_transform_reference keep, whichever
-    lane does an operation), on a system with no degenerate step:
-    (operations, chain, on_chain); tests/test_torch_warp.py holds its
-    count against a closed form. operations counts every multiply, add,
-    divide and square root; chain is the longest run of them each of
-    which waits for the one before,
-    each kind weighted by cycles[kind] ("add" for adds and subtractions,
-    "mul", "div", "sqrt"; 1 each by default, which counts operations), so
-    that no bit-exact order of this solve can finish sooner; on_chain
-    counts each kind on that run."""
-    cycles = cycles or {"add": 1, "mul": 1, "div": 1, "sqrt": 1}
-    n_ops = [0]
-    leaf = (0, {})
-
-    def op(kind, *args):       # a value is (chain cycles, kinds on it)
-        n_ops[0] += 1
-        length, kinds = max(args, key=lambda v: v[0])
-        return length + cycles[kind], {**kinds, kind: kinds.get(kind, 0) + 1}
-
-    def mul(x, y):
-        return op("mul", x, y)
-
-    def add(x, y):
-        return op("add", x, y)
-
-    def redux(p):
-        if len(p) < 4:
-            r = p[0]
-        else:
-            r, p = add(add(p[0], p[2]), add(p[1], p[3])), p[3:]
-        for v in p[1:]:
-            r = add(r, v)
-        return r
-
-    n = 8
-    a = [[leaf] * n for _ in range(n)]
-    c = [leaf] * n
-    for i in range(n):
-        a[i][6], a[i][7] = mul(leaf, leaf), mul(leaf, leaf)
-    taus = []
-    for k in range(n - 1):      # the last step is degenerate: tau 0
-        nt = n - 1 - k
-        c0 = a[k][k]
-        tsq = redux([mul(a[i][k], a[i][k]) for i in range(k + 1, n)])
-        beta = op("sqrt", add(mul(c0, c0), tsq))
-        d = add(c0, beta)
-        ess = [op("div", a[i][k], d) for i in range(k + 1, n)]
-        tau = op("div", add(beta, c0), beta)
-        taus.append((tau, ess))
-        a[k][k] = beta
-        scaled = [mul(tau, e) for e in ess]
-        for j in range(k + 1, n):
-            tmp = add(redux([mul(ess[i], a[k + 1 + i][j])
-                             for i in range(nt)]), a[k][j])
-            a[k][j] = add(a[k][j], mul(tau, tmp))
-            for i in range(nt):
-                a[k + 1 + i][j] = add(a[k + 1 + i][j], mul(scaled[i], tmp))
-    for k, (tau, ess) in enumerate(taus):              # c = Q^T b
-        t = add(redux([mul(ess[i], c[k + 1 + i])
-                       for i in range(len(ess))]), c[k])
-        c[k] = add(c[k], mul(tau, t))
-        for i in range(len(ess)):
-            c[k + 1 + i] = add(c[k + 1 + i], mul(mul(tau, ess[i]), t))
-    c[n - 1] = mul(c[n - 1], add(leaf, leaf))          # H_7: 1 - tau
-    for j in range(n - 1, -1, -1):                     # back-substitution
-        c[j] = op("div", c[j], a[j][j])
-        for i in range(j):
-            c[i] = add(c[i], mul(c[j], a[i][j]))
-    chain, on_chain = max(c, key=lambda v: v[0])
-    return n_ops[0], chain, on_chain
-
-
 def op_cycles(dev):
     """Cycles of one dependent add, multiply, IEEE division, IEEE square
     root and warp shuffle on the card, and one warp's cycles an add on
@@ -823,9 +748,9 @@ def persp_phase(persp_qr, dev):
         lambda: torch.linalg.solve_ex(a, b))
     solved = torch.linalg.solve_ex(a, b)[0][:, :, 0]
     lib_err = (solved - got[:N_STREAMS].reshape(-1, 9)[:, :8]).abs().max()
-    n_ops = persp_qr_ops()[0]
-    n_bytes = src.numel() * 4 + dst.numel() * 4 + N_STREAMS * 9 * 4
-    bound_ms, bound_by = bound(n_bytes, N_STREAMS * n_ops)
+    flops, n_bytes, kind = persp_qr.work(src, dst)
+    n_ops = flops // N_STREAMS
+    bound_ms, bound_by = bound(flops, n_bytes, kind)
     print(f"persp_qr at {N_STREAMS} streams (+1 all-zero set): equal bit for "
           f"bit, NaN included; kernel {ms:.5f} ms ({method}), plain "
           f"{plain_ms:.5f} ms ({plain_method}), torch.linalg.solve_ex "
@@ -837,7 +762,7 @@ def persp_phase(persp_qr, dev):
             "bound_by": bound_by}
 
 
-def persp_floors(dev):
+def persp_floors(persp_qr, dev):
     """Phase 7's floors beside the kernel's time, printed on their own
     line: the solve's dependency chain (persp_qr_ops at the latencies of
     op_cycles) at the SM clock, and an empty launch (a fill of one
@@ -846,8 +771,8 @@ def persp_floors(dev):
     empty_ms, _ = kernel_ms(lambda: one.fill_(0.0))
     mhz = sm_clock_mhz()
     cycles = op_cycles(dev)
-    _, n_chain, on_chain = persp_qr_ops()
-    chain_cycles = persp_qr_ops(cycles)[1]
+    _, n_chain, on_chain = persp_qr.persp_qr_ops()
+    chain_cycles = persp_qr.persp_qr_ops(cycles)[1]
     chain_ms = chain_cycles / mhz / 1e3
     print(f"persp_qr chain: {n_chain} dependent operations ({on_chain}); "
           f"cycles an op on the card {cycles}; {chain_cycles:.0f} cycles, "
@@ -856,24 +781,6 @@ def persp_floors(dev):
     return {"chain_floor_ms": chain_ms, "chain_cycles": chain_cycles,
             "chain_ops": on_chain, "op_cycles": cycles, "sm_clock_mhz": mhz,
             "empty_launch_ms": empty_ms}
-
-
-def tapped_pixels(port, m, frame_shape):
-    """How many frame pixels the warp's taps read, over all streams."""
-    s = m.shape[0]
-    in_h, in_w = frame_shape
-    xq, yq = port.ops.warp_coord_maps(m, CARD_SHAPE)
-    x0, y0 = (xq >> 5).reshape(s, -1), (yq >> 5).reshape(s, -1)
-    read = torch.zeros((s, in_h * in_w + 1), dtype=torch.bool,
-                       device=m.device)
-    for dy in (0, 1):
-        for dx in (0, 1):
-            x, y = x0 + dx, y0 + dy
-            inside = (x >= 0) & (x < in_w) & (y >= 0) & (y < in_h)
-            # taps outside the frame land on the spare last column
-            idx = torch.where(inside, y * in_w + x, in_h * in_w)
-            read.scatter_(1, idx.to(torch.int64), True)
-    return int(read[:, :-1].sum())
 
 
 def warp_phase(port, warp, dev):
@@ -920,10 +827,8 @@ def warp_phase(port, warp, dev):
     ms = times["landscape"]
     plain_ms, plain_method = kernel_ms(
         lambda: warp.warp_perspective_reference(*timed))
-    pixels = N_STREAMS * CARD_SHAPE[0] * CARD_SHAPE[1]
-    n_bytes = tapped_pixels(port, m, FRAME_SHAPE) + m.numel() * 4 + pixels
-    flops = pixels * WARP_F64_PER_PIXEL + N_STREAMS * WARP_F64_PER_STREAM
-    bound_ms, bound_by = bound(n_bytes, flops, "f64")
+    flops, n_bytes, kind = warp.work(*timed)
+    bound_ms, bound_by = bound(flops, n_bytes, kind)
     print(f"warp at {N_STREAMS} streams (+1 NaN homography) and at "
           f"{STREAM_COUNTS[:-1]} streams (the NaN one among them), landscape "
           f"and portrait: kernel == plain route u8 for u8; kernel landscape "
@@ -1032,28 +937,6 @@ def card_maps(fn):
         fn()
     torch.cuda.synchronize()
     return record.found
-
-
-def profile_step(fn):
-    """One call of fn under torch.profiler: device ms in all, the number of
-    device operations, those whose kernel works on float64 (name holds
-    "double"), and the five kernels with the most device time as (name,
-    ms, launches)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    f64 = [e for e in rows if "double" in e.key]
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    return {"device_ms": sum(e.self_device_time_total for e in rows) / 1e3,
-            "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count)
-                    for e in rows[:5]],
-            "device_ops": sum(e.count for e in rows),
-            "f64_ops": sum(e.count for e in f64),
-            "f64_ms": sum(e.self_device_time_total for e in f64) / 1e3}
 
 
 def camera_serving_phase(port, kernels, params, fixture, pans, card, dev):
@@ -2057,11 +1940,8 @@ def train_step_timing(port, model, batch, dev, reps=20):
     x, y = (torch.from_numpy(a).to(dev)
             for a in data_fn(np.random.RandomState(1), batch))
     ms = host_ms(lambda: step(params, x, y), reps)
-    for _ in range(3):
-        prof = profile_step(lambda: step(params, x, y))
-        if prof["device_ops"]:
-            return ms, prof["device_ms"], prof["device_ops"]
-    return ms, None, None
+    prof = profile_step(lambda: step(params, x, y))
+    return ms, prof["device_ms"], prof["device_ops"]
 
 
 def train_phase(port, kernels, card, dev):
@@ -2219,16 +2099,11 @@ def bench_step_launches(port, kernels, params, dev):
             raise AssertionError(f"a {shape} bench step launched "
                                  f"{launches[shape]}; want {want}")
         host = host_ms(lambda: step(states, *inputs), 10)
-        split[shape] = {"host_ms": host, "device_ms": None,
-                        "device_ops": None, "idle": None}
-        for _ in range(3):
-            prof = profile_step(lambda: step(states, *inputs))
-            if prof["device_ops"]:
-                split[shape].update(
-                    device_ms=prof["device_ms"],
-                    device_ops=prof["device_ops"],
-                    idle=round(1 - prof["device_ms"] / host, 3))
-                break
+        prof = profile_step(lambda: step(states, *inputs))
+        split[shape] = {"host_ms": host, "device_ms": prof["device_ms"],
+                        "device_ops": prof["device_ops"],
+                        "idle": prof["device_ms"] and round(
+                            1 - prof["device_ms"] / host, 3)}
     y, cb, cr = (torch.from_numpy(a[:16]).to(dev)
                  for a in bench.camera_inputs(N_STREAMS))
     _, (found, _, _) = port.batched_camera_step(
@@ -2326,6 +2201,196 @@ def tools_phase(port, kernels, params, card, dev):
     return {"launches": launches}
 
 
+# --- 22 profilers -----------------------------------------------------------
+
+# the record keys of the JAX package's tools/roofline.py (_analyze), and the
+# port's own (tests/test_torch_profile_tools.py holds both against the
+# tools)
+JAX_ROOFLINE_KEYS = (
+    "shape", "streams", "step_ms", "fps", "gflops_per_step",
+    "mflops_per_frame", "hbm_mb_per_step", "hbm_kb_per_frame", "mfu_pct",
+    "hbm_util_pct", "floor_ms_compute", "floor_ms_hbm",
+    "roofline_fps_ceiling", "bound")
+PORT_ROOFLINE_KEYS = (
+    "min_mb_per_step", "int_ops", "mfu_pct_of_device_ms",
+    "hbm_util_pct_of_device_ms", "device_ms", "idle_share", "peak", "device")
+ROOFLINE_SHARES = ("mfu_pct", "hbm_util_pct", "mfu_pct_of_device_ms",
+                   "hbm_util_pct_of_device_ms")
+# what counts_on_both prints of each graph's count
+COUNT_KEYS = ("flops", "bytes", "int_ops", "min_bytes", "kernels")
+
+
+def run_profilers(dev):
+    """Each stage profiler in this process at its defaults (PROFILE_STREAMS
+    streams), PROFILE_ITERS timed calls a stage: every stage line present
+    with a time above 0. Returns {tool: {stage: ms}}."""
+    from cardio_dmz_tpu_torch.tools import (
+        profile_camera, profile_camera_ablate, profile_expiry, profile_pan,
+        profile_warp)
+    argv = ["--device", str(dev), "--iters", str(PROFILE_ITERS)]
+    runs = {"profile_pan": (profile_pan, [], profile_pan.STAGES),
+            "profile_expiry": (profile_expiry, [], profile_expiry.STAGES),
+            "profile_expiry --fine": (profile_expiry, ["--fine"],
+                                      profile_expiry.FINE_STAGES),
+            "profile_camera": (profile_camera, [], None),
+            "profile_camera_ablate": (profile_camera_ablate, [],
+                                      profile_camera_ablate.STAGES),
+            "profile_warp": (profile_warp, [], profile_warp.STAGES)}
+    out = {}
+    for name, (tool, extra, stages) in runs.items():
+        times = tool.main(argv + extra)
+        if stages is None:           # profile_camera's names hold band shapes
+            stages = [k for k in times if k.split()[0] in (
+                "sobel7", "canny", "canny+hough")] + [
+                "detect_edges (all 12 bands)", "warp 428x270",
+                "preprocess_frame (fused)", "scanner_step (PAN+expiry)"]
+            if len(stages) != 10:
+                raise AssertionError(f"profile_camera stages {list(times)}")
+        if list(times) != list(stages) or not all(
+                ms > 0 for ms in times.values()):
+            raise AssertionError(f"{name}: stages {times}; want {stages} "
+                                 f"each above 0 ms")
+        out[name] = times
+    return out
+
+
+def check_roofline(records):
+    """Every key of the JAX record and the port's, and every share below
+    100% (the idle share below 1)."""
+    for shape, rec in records.items():
+        missing = set(JAX_ROOFLINE_KEYS + PORT_ROOFLINE_KEYS) - set(rec)
+        shares = [rec[k] for k in ROOFLINE_SHARES]
+        if (missing or any(v is None or not 0 < v < 100 for v in shares)
+                or not 0 <= rec["idle_share"] < 1):
+            raise AssertionError(f"roofline {shape}: missing {missing}, "
+                                 f"record {rec}")
+
+
+def roofline_launches(port, kernels, params, dev):
+    """Each kernel's launches inside one roofline step of each shape, at
+    ROOFLINE_STREAMS streams."""
+    from cardio_dmz_tpu_torch.tools import roofline
+    out = {}
+    for shape, (step, inputs) in roofline.shape_steps(
+            params, ROOFLINE_STREAMS, dev).items():
+        states = port.init_stream_states(ROOFLINE_STREAMS, dev, (2026, 1))
+        states, _ = step(states, *inputs)
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        step(states, *inputs)
+        torch.cuda.synchronize()
+        out[shape] = read_launches(kernels)
+        want = {"digit_prep": 1, "warp_gather": int(shape == "camera"),
+                "persp_qr": int(shape == "camera")}
+        if out[shape] != want:
+            raise AssertionError(f"a roofline {shape} step launched "
+                                 f"{out[shape]}; want {want}")
+    return out
+
+
+def counts_on_both(port, params, dev):
+    """One step of each of stage_bytes' graphs and of the roofline's camera
+    shape counted at COUNT_STREAMS streams on the card and on the CPU, in
+    this process: the totals, the kernels' tally, the minimum bytes and
+    every aten op's count equal. Returns {graph: card's count}."""
+    from cardio_dmz_tpu_torch.tools import roofline, stage_bytes
+    from cardio_dmz_tpu_torch.tools.profiling import count_step
+    cpu = torch.device("cpu")
+
+    def count(on, on_params):
+        rows = stage_bytes.count_graphs(on_params, COUNT_STREAMS, on)
+        step, inputs = roofline.shape_steps(on_params, COUNT_STREAMS,
+                                            on)["camera"]
+        states = port.init_stream_states(COUNT_STREAMS, on, (2026, 1))
+        states, _ = step(states, *inputs)
+        counter, min_bytes = count_step(step, on_params, states, *inputs)
+        rows["roofline camera"] = {**counter.summary(),
+                                   "min_bytes": min_bytes}
+        return rows
+
+    card_rows = count(dev, params)
+    cpu_rows = count(cpu, port.load_all_params(cpu))
+    for graph, row in card_rows.items():
+        if row != cpu_rows[graph]:
+            ops = sorted(set(row["by_op"]) | set(cpu_rows[graph]["by_op"]))
+            differ = {op: (row["by_op"].get(op), cpu_rows[graph]["by_op"].get(
+                op)) for op in ops
+                if row["by_op"].get(op) != cpu_rows[graph]["by_op"].get(op)}
+            raise AssertionError(
+                f"{graph} at {COUNT_STREAMS} streams counts otherwise on the "
+                f"card and on the CPU: card {[row[k] for k in COUNT_KEYS]}, "
+                f"cpu {[cpu_rows[graph][k] for k in COUNT_KEYS]}; ops (card, "
+                f"cpu) [calls, flops, bytes, int_ops]: {differ}")
+    return card_rows
+
+
+
+def rendered_cards_phase(port, params, expiry, dev):
+    """The fixture's two dated cards drawn by the port's renderer: equal to
+    the JAX-rendered frames bit for bit, and the full step reads their
+    PANs and dates."""
+    from cardio_dmz_tpu_torch import synthetic
+    pans, dates = fixture_pans(expiry), fixture_dates(expiry)
+    n_frames = expiry["frames"].shape[1]
+    dated = [k for k, d in enumerate(dates) if d != "00/0"]
+    cards = np.stack([np.stack([synthetic.render_frame_with_expiry(
+        pans[k], f"{int(expiry['expiry_month'][k, -1]):02d}/"
+                 f"{int(expiry['expiry_year'][k, -1]) % 100:02d}",
+        seed=t, **DATED_CARD) for t in range(n_frames)]) for k in dated])
+    if not np.array_equal(cards, expiry["frames"][dated]):
+        raise AssertionError("the port's renderer draws other dated cards "
+                             "than the JAX package's")
+    state, _ = port.scan_frames(params, torch.from_numpy(cards).to(dev),
+                                tuple(expiry["now"].tolist()),
+                                scan_expiry=True)
+    read = list(zip([_pan(d[:int(n)]) for d, n in zip(
+        state.completed_digits.cpu(), state.completed_n.cpu())],
+        _dates(state.expiry_month.cpu(), state.expiry_year.cpu())))
+    want = [(pans[k], dates[k]) for k in dated]
+    if read != want:
+        raise AssertionError(f"rendered cards read {read}; want {want}")
+    return read
+
+
+def profilers_phase(port, kernels, params, expiry, card, dev):
+    phase("22 profilers")
+    from cardio_dmz_tpu_torch.tools import buffer_hogs, roofline, stage_bytes
+    t0 = time.perf_counter()
+    times = run_profilers(dev)
+    profilers_s = time.perf_counter() - t0
+    print(f"profilers at {PROFILE_STREAMS} streams, {PROFILE_ITERS} timed "
+          f"calls a stage ({profilers_s:.3f} s): {json.dumps(times)}; "
+          f"card {card}")
+    records = roofline.main(["--device", str(dev), "--iters",
+                             str(PROFILE_ITERS)])
+    check_roofline(records)
+    launches = roofline_launches(port, kernels, params, dev)
+    print(f"roofline at {ROOFLINE_STREAMS} streams: every JAX key and the "
+          f"port's present, every share under 100%; kernel launches in one "
+          f"step of each shape {launches}; card {card}")
+    gb = stage_bytes.main(["--device", str(dev)])
+    for full, ablated in (("camera_full", "camera_no_detect"),
+                          ("camera_full", "camera_no_warp"),
+                          ("scan_full", "scan_pan")):
+        if not gb[full]["gb"] > gb[ablated]["gb"]:
+            raise AssertionError(f"stage_bytes: {full} {gb[full]} against "
+                                 f"{ablated} {gb[ablated]}")
+    hogs = buffer_hogs.main(["--device", str(dev), "--graph", "camera",
+                             "--cycles", "--top", "20"])
+    unattributed = hogs["by_source"].get("?", (0.0, 0))[0]
+    if not (hogs["buffers"] and hogs["device_ms"] > 0
+            and unattributed < 0.1 * hogs["device_ms"]):
+        raise AssertionError(f"buffer_hogs: {hogs}")
+    counts = counts_on_both(port, params, dev)
+    print(f"counts at {COUNT_STREAMS} streams equal on {dev} and the CPU "
+          f"(flops, bytes, int_ops, min_bytes, kernels): " + json.dumps(
+              {g: [r[k] for k in COUNT_KEYS] for g, r in counts.items()}))
+    read = rendered_cards_phase(port, params, expiry, dev)
+    print(f"the port's renderer draws the fixture's dated cards bit for bit "
+          f"without PIL; the full step reads {read}")
+    return {"launches": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2346,7 +2411,7 @@ def main():
     scan = serving_phase(port, kernels, params, fixture, pans, card, dev)
     measured["persp_qr"] = persp_phase(persp_qr, dev)
     persp_cases(persp_qr, dev)
-    persp_floors(dev)
+    persp_floors(persp_qr, dev)
     measured["warp_gather"] = warp_phase(port, warp_gather, dev)
     camera = load_npz(fixture_path(port, "camera_session.npz"))
     camera_pans = camera_session_phase(port, kernels, params, camera, dev)
@@ -2370,6 +2435,7 @@ def main():
     train_phase(port, kernels, card, dev)
     hooks = entry_phase(port, kernels, card, dev)
     tools = tools_phase(port, kernels, params, card, dev)
+    profilers = profilers_phase(port, kernels, params, expiry, card, dev)
 
     seconds, total = phase_seconds()
     print(f"phase seconds {json.dumps(seconds)}; total {total:.3f} s")
@@ -2388,6 +2454,8 @@ def main():
         "launches_dryrun_multichip": hooks["dryrun"][name],
         "launches_bench_step": {shape: n[name] for shape, n in
                                 tools["launches"].items()},
+        "launches_roofline_step": {shape: n[name] for shape, n in
+                                   profilers["launches"].items()},
         **measured[name]} for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,11 @@
 JAX package: the PAN-only step, the camera step and both full (PAN +
 expiry) steps, the host side (HostScanner, a checkpoint saved and loaded,
 the frame pump built and used, the step split over a device list),
-training (a batch of each generator, a fit step), and the tools (the
+training (a batch of each generator, a fit step), the tools (the
 renderer, the float warp, the bench, both accuracy sweeps, the scaling
-curve, the debug timers and trace, load_params)."""
+curve, the debug timers and trace, load_params), and the profilers' work
+counter, a roofline record and stage_bytes on the CPU, the dated-card
+renderer and the debug image dump."""
 
 import os
 import subprocess
@@ -112,6 +114,29 @@ with tempfile.TemporaryDirectory() as tmp:
     assert os.path.getsize(trace) > 0
 assert port.models.load_params("vseg_mlp", "cpu")["hidden_w"].dtype == \
     torch.float32
+
+# the profilers' counter, a roofline record and stage_bytes on the CPU, the
+# dated-card renderer and the debug dump
+from cardio_dmz_tpu_torch.tools import roofline, stage_bytes
+from cardio_dmz_tpu_torch.tools.profiling import WorkCounter
+from cardio_dmz_tpu_torch.utils.debug_images import dump_expiry_stages
+serving = port.load_all_params("cpu")
+with WorkCounter() as counter:
+    port.batched_scanner_step(serving, states, frames)
+assert counter.flops > 0 and counter.kernels["digit_prep"][0] == 1
+with contextlib.redirect_stdout(io.StringIO()):
+    record = roofline.main(["--device", "cpu", "--streams", "2",
+                            "--shapes", "pan"])["pan"]
+    rows = stage_bytes.main(["--device", "cpu", "--streams", "2"])
+assert record["gflops_per_step"] > 0 and record["step_ms"] is None
+assert rows["camera_full"]["gb"] > rows["scan_full"]["gb"]
+dated = synthetic.render_frame_with_expiry("4111111111111111", "08/28",
+                                           style="emboss")
+assert dated.shape == (270, 428) and (dated != synthetic.render_frame(
+    "4111111111111111", style="emboss", noise=1)).any()
+with tempfile.TemporaryDirectory() as tmp:
+    assert len(dump_expiry_stages(dated, 150, serving["slash_mlp"],
+                                  tmp)) == 4
 
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("cardio_dmz_tpu", "jaxlib", "PIL"))

@@ -33,7 +33,7 @@ from cardio_dmz_tpu_torch.constants import (
 from cardio_dmz_tpu_torch.ops import persp as ppersp
 from cardio_dmz_tpu_torch.ops import warp as pwarp
 from cardio_dmz_tpu_torch.ops.cuda import persp_qr, warp_gather
-from chip_smoke import dest_rects, persp_qr_ops
+from chip_smoke import dest_rects
 from torch_parity import to_np
 
 OUT = (270, 428)
@@ -144,8 +144,8 @@ def test_persp_per_stream_dest_checks():
 
 
 def test_persp_qr_ops_counts_the_solve():
-    """chip_smoke.persp_qr_ops, the model behind persp QR's bound and
-    chain floor, against a closed count of the solve's f32 operations:
+    """persp_qr.persp_qr_ops, the model behind persp QR's bound (its
+    wrapper's work formula) and chain floor, against a closed count of the solve's f32 operations:
     the system's 16 products, each Householder step's norm, beta, ess,
     tau and update, Q^T b, and the back-substitution."""
     n, ops = 8, 16
@@ -156,11 +156,12 @@ def test_persp_qr_ops_counts_the_solve():
             ops += nt * 2 * nt + 2 * nt + nt * (1 + 2 * nt)   # the update
         ops += 2 if nt == 0 else 2 * nt + 2 + 3 * nt      # Q^T b
     ops += sum(1 + 2 * j for j in range(n))       # back-substitution
-    n_ops, chain, on_chain = persp_qr_ops()
+    n_ops, chain, on_chain = persp_qr.persp_qr_ops()
     assert n_ops == ops == 999
     assert chain == sum(on_chain.values()) == 120
     assert on_chain["div"] == 15 and on_chain["sqrt"] == 7
-    weighted = persp_qr_ops({"add": 1, "mul": 1, "div": 10, "sqrt": 10})[1]
+    weighted = persp_qr.persp_qr_ops(
+        {"add": 1, "mul": 1, "div": 10, "sqrt": 10})[1]
     assert weighted == 120 + 9 * 22
 
 

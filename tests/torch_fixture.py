@@ -42,6 +42,12 @@ digit masks of train/data._render_expiry_char (16x11, every digit at
 every jitter it draws). The port's generators (cardio_dmz_tpu_torch/
 train/) take them from this table and need no PIL.
 
+expiry_glyphs.npz, the expiry text the JAX package's
+synthetic.render_text_small draws with PIL: each digit's coverage mask, its
+offset and its textbbox, as PIL rasterizes it. The port's renderer
+(cardio_dmz_tpu_torch/synthetic.py) composites them as PIL does and needs
+no PIL.
+
 train_session.npz, training and __graft_entry__: for each of the four
 architectures of tools/train_models.py, its initial parameters
 (PRNGKey(0)), three seed-0 batches of 64 from its generator,
@@ -58,8 +64,8 @@ and each report as JSON.
 chip_smoke.py replays them through the port on the card, where neither
 JAX nor the renderer is installed. Write the files anew with
 
-    python tests/torch_fixture.py [smoke camera expiry host glyphs train
-                                   sweep]
+    python tests/torch_fixture.py [smoke camera expiry host glyphs
+                                   expiry_glyphs train sweep]
 
 (all of them when none is named).
 """
@@ -83,8 +89,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import synthetic  # noqa: E402
 from cardio_dmz_tpu import api  # noqa: E402
 from chip_smoke import (  # noqa: E402
-    ORIENTATIONS, TRAIN_BATCH, TRAIN_LR, TRAIN_MODELS, group_rects,
-    paste_previews)
+    DATED_CARD, ORIENTATIONS, TRAIN_BATCH, TRAIN_LR, TRAIN_MODELS,
+    group_rects, paste_previews)
 from cardio_dmz_tpu.constants import (  # noqa: E402
     LANDSCAPE_HORIZONTAL_INSET, LANDSCAPE_VERTICAL_INSET,
     ORIENTATION_LANDSCAPE_RIGHT)
@@ -102,6 +108,7 @@ CAMERA_FIXTURE = os.path.join(_DATA, "camera_session.npz")
 EXPIRY_FIXTURE = os.path.join(_DATA, "expiry_session.npz")
 HOST_FIXTURE = os.path.join(_DATA, "host_session.npz")
 GLYPH_FIXTURE = os.path.join(_DATA, "train_glyphs.npz")
+EXPIRY_GLYPH_FIXTURE = os.path.join(_DATA, "expiry_glyphs.npz")
 TRAIN_FIXTURE = os.path.join(_DATA, "train_session.npz")
 SWEEP_FIXTURE = os.path.join(_DATA, "sweep_session.npz")
 NOW = (2026, 1)
@@ -339,9 +346,8 @@ def expiry_frames():
         if expiry is None:
             return synthetic.render_frame(pan, y0=150, width=18.0, offset=35,
                                           seed=seed, noise=1)
-        return synthetic.render_frame_with_expiry(
-            pan, expiry, y0=150, offset=35, expiry_y=212, expiry_x=120,
-            noise=1, seed=seed)
+        return synthetic.render_frame_with_expiry(pan, expiry, seed=seed,
+                                                  **DATED_CARD)
     return np.stack([np.stack([render(pan, expiry, s)
                                for s in range(EXPIRY_FRAMES)])
                      for pan, expiry in EXPIRY_STREAMS])
@@ -743,6 +749,35 @@ def glyph_arrays():
             "expiry_digits": expiry}
 
 
+def expiry_glyph_arrays():
+    """What expiry_glyphs.npz holds: the expiry digits as
+    synthetic.render_text_small draws them (synthetic._EXPIRY_DIGIT_FONTS),
+    each as PIL's ImageDraw.text rasterizes it at a whole-pixel position:
+    font.getmask2's coverage mask (padded into one array; "mask_shape"
+    holds each one's height and width) and offset, and the textbbox that
+    places it."""
+    from PIL import Image, ImageDraw, ImageFont
+
+    from cardio_dmz_tpu.synthetic import _EXPIRY_DIGIT_FONTS
+
+    draw = ImageDraw.Draw(Image.new("L", (1, 1), 0))
+    masks, shapes, offsets, bboxes = [], [], [], []
+    for d in range(10):
+        path, size = _EXPIRY_DIGIT_FONTS[d]
+        font = ImageFont.truetype(path, size)
+        mask, offset = font.getmask2(str(d), draw.fontmode)
+        w, h = mask.size
+        masks.append(np.array(mask, np.uint8).reshape(h, w))
+        shapes.append((h, w))
+        offsets.append(offset)
+        bboxes.append(draw.textbbox((0, 0), str(d), font=font))
+    padded = np.zeros((10,) + tuple(np.max(shapes, axis=0)), np.uint8)
+    for d, m in enumerate(masks):
+        padded[d, :m.shape[0], :m.shape[1]] = m
+    return {"mask": padded, "mask_shape": np.int32(shapes),
+            "offset": np.int32(offsets), "bbox": np.int32(bboxes)}
+
+
 @functools.lru_cache(maxsize=None)
 def train_spec(model):
     """tools/train_models._spec(model) of the JAX package."""
@@ -929,6 +964,7 @@ WRITERS = {"smoke": (FIXTURE, fixture_arrays),
            "expiry": (EXPIRY_FIXTURE, expiry_fixture_arrays),
            "host": (HOST_FIXTURE, host_fixture_arrays),
            "glyphs": (GLYPH_FIXTURE, glyph_arrays),
+           "expiry_glyphs": (EXPIRY_GLYPH_FIXTURE, expiry_glyph_arrays),
            "train": (TRAIN_FIXTURE, train_fixture_arrays),
            "sweep": (SWEEP_FIXTURE, sweep_fixture_arrays)}
 
