@@ -37,11 +37,16 @@ table instead of PIL; the trainable model forms of models/zoo.py; fit,
 with Adam, over a mesh's data and model axes) and tools/train_models.py;
 entry.py holds the counterparts of __graft_entry__.py (entry,
 dryrun_multichip).
+
+And the compiled card.io C++ as an oracle: refbridge/ links the
+reference's objects (native/refshim/build/) with the system OpenCV and
+wraps them with ctypes; tools/parity_ab.py and tools/tune_emboss.py hold
+the port and the renderer against it.
 """
 
 from . import (  # noqa: F401
-    api, config, constants, models, ops, parallel, runtime, scan, session,
-    tools, train, utils)
+    api, config, constants, models, ops, parallel, refbridge, runtime, scan,
+    session, tools, train, utils)
 from .api import blur_card  # noqa: F401
 from .models import load_all_params  # noqa: F401
 from .parallel import (  # noqa: F401

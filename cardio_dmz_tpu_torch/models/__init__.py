@@ -1,5 +1,5 @@
 from .zoo import (  # noqa: F401
-    ExpiryConv, Mlp, PanConv, SlashMlp, pan_digit_scores)
+    ExpiryConv, Mlp, PanConv, pan_digit_scores)
 from .weights import (  # noqa: F401
     load_all_params, load_np, load_params, module_from_numpy,
     params_from_numpy)

@@ -10,7 +10,7 @@ import os
 import numpy as np
 import torch
 
-from .zoo import ExpiryConv, Mlp, PanConv, SlashMlp
+from .zoo import ExpiryConv, Mlp, PanConv
 
 PARAM_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -21,7 +21,7 @@ _PAN_CONV = (PanConv, ("conv_w", "conv_b") + _MLP_KEYS)
 # model name -> (module, its constructor's arrays in order)
 _MODELS = {
     "vseg_mlp": (Mlp, _MLP_KEYS),
-    "slash_mlp": (SlashMlp, _MLP_KEYS),
+    "slash_mlp": (Mlp, _MLP_KEYS),
     "pan_conv_a": _PAN_CONV,
     "pan_conv_b": _PAN_CONV,
     "pan_conv_c": _PAN_CONV,

@@ -18,6 +18,7 @@ from ..constants import (
     EXPIRY_MIN_STABILITY,
 )
 from ..ops import bilateral3x3, equalize_hist, morph_grad3_2d_cross_u8
+from ..parallel.mesh import named_device
 from .expiry_types import (
     EXPIRY_MAX_VALID_LENGTH,
     ExpiryPattern,
@@ -53,8 +54,10 @@ def prepare_chars_for_cat(card_y, positions, device):
         (), 255.0, dtype=torch.float32, device=sm.device)
 
 
-def prepare_char_for_cat(card_y, top, left, device="cpu"):
-    """One character's prepared (16, 11) f32 cell, as numpy."""
+def prepare_char_for_cat(card_y, top, left, device=None):
+    """One character's prepared (16, 11) f32 cell, as numpy, computed on
+    `device` (the CUDA device when None)."""
+    device = named_device(device, "prepare_char_for_cat")
     return prepare_chars_for_cat(card_y, [(top, left)], device)[0].cpu(
         ).numpy()
 

@@ -17,7 +17,6 @@ whose middle char is a slash (MLP prob > 0.7) => pattern MM/YY.
 import numpy as np
 import torch
 
-from ..models.zoo import Mlp
 from .expiry_types import (
     CharacterRect,
     ExpiryPattern,
@@ -260,17 +259,15 @@ def _slash_probs(slash_mlp, sobel, rects):
     exceed 1: the reference's behaviour, kept) -> the slash MLP ->
     P(slash), one batch on the module's device.
 
-    This is the plain MLP on crop / 255, Mlp.forward over the module's
-    hidden_w, hidden_b, logistic_w and logistic_b. The device path's
-    SlashMlp.band_w (hidden_w / 255 rounded to bfloat16) is not read
-    here."""
+    The device path (expiry_device.slash_probs_conv) computes the same
+    function on its gathered crops."""
     if not rects:
         return []
     crops = np.stack([
         sobel[r.top:r.top + TRIMMED_CHAR_HEIGHT,
               r.left:r.left + TRIMMED_CHAR_WIDTH] for r in rects])
     x = (crops.astype(np.float32) / 255.0).reshape(len(rects), -1)
-    probs = Mlp.forward(slash_mlp, torch.from_numpy(x).to(
+    probs = slash_mlp(torch.from_numpy(x).to(
         slash_mlp.hidden_w.device))
     return probs[:, 0].cpu().tolist()
 
@@ -396,7 +393,7 @@ def best_expiry_seg(card_y, starting_y_offset, slash_mlp,
     runtime (expiry_seg.cpp:547-548) so collect_name_groups defaults
     False (name_groups empty, matching shipped behavior); True enables
     the carried-but-disabled gather_into_groups(.., 2*char_width) path.
-    card_y: (270, 428) u8 numpy; slash_mlp: the port's SlashMlp module."""
+    card_y: (270, 428) u8 numpy; slash_mlp: the port's slash Mlp module."""
     card_y = np.asarray(card_y)
     sobel = scharr_dx_abs_below(card_y, starting_y_offset)
     stripes = select_stripes(sobel, starting_y_offset)

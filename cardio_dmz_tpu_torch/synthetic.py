@@ -25,18 +25,22 @@ DIGIT_FILL = 60
 SAFE_DIGITS = tuple(range(10))
 EXPIRY_GLYPHS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "data", "expiry_glyphs.npz")
+# the expiry font's sizes whose glyphs EXPIRY_GLYPHS holds
+EXPIRY_FONT_SIZES = (18,)
 
 
 def render_digit_cell(digit, seed=0, fill=DIGIT_FILL, bg=CARD_BG,
-                      style="flat"):
+                      style="flat", relief=None):
     """One 27x19 digit cell on the card background + mild noise.
 
     style="flat": dark printed ink (fill on bg). style="emboss":
-    directional-light relief of the same glyph (glyphs._emboss_delta)."""
+    directional-light relief of the same glyph (glyphs._emboss_delta);
+    relief: its (vertical amplitude, horizontal amplitude, face tint),
+    glyphs.EMBOSS_AV, EMBOSS_AH and EMBOSS_TINT when None."""
     r = np.random.RandomState(seed)
     m = _digit_mask(digit)
     if style == "emboss":
-        a = bg + _emboss_delta(m)
+        a = bg + _emboss_delta(m, *(relief or ()))
     else:
         a = np.round(bg + (fill - bg) * m).astype(np.int32)
     a = a + r.randint(-4, 5, (27, 19))
@@ -45,14 +49,15 @@ def render_digit_cell(digit, seed=0, fill=DIGIT_FILL, bg=CARD_BG,
 
 def render_frame(pan, y0=160, width=18.0, offset=30, seed=0, bg=CARD_BG,
                  noise=4, brightness=0, contrast=1.0, shading=0,
-                 style="flat"):
+                 style="flat", relief=None):
     """A full 270x428 rectified card frame with `pan` on the PAN row.
 
     pan: string of 15 (amex spacing) or 16 (visa spacing) digits.
     brightness/contrast: global photometric perturbation applied last
     (camera exposure sweep). shading: peak amplitude of a smooth random
     illumination gradient across the card (textured/unevenly lit card).
-    style: "flat" printed ink or "emboss" relief glyphs.
+    style: "flat" printed ink or "emboss" relief glyphs; relief: the
+    emboss's (vertical, horizontal, tint), as render_digit_cell takes it.
     """
     r = np.random.RandomState(seed)
     y = np.full((270, 428), bg, np.int32)
@@ -66,7 +71,7 @@ def render_frame(pan, y0=160, width=18.0, offset=30, seed=0, bg=CARD_BG,
             continue
         x0 = offset + int(round(k * width))
         cell = render_digit_cell(int(pan[digit_idx]), seed=seed * 100 + k,
-                                 bg=bg, style=style)
+                                 bg=bg, style=style, relief=relief)
         region = y[y0:y0 + 27, x0:x0 + 19]
         delta = cell.astype(np.int32) - bg
         y[y0:y0 + 27, x0:x0 + 19] = region + delta
@@ -105,7 +110,7 @@ def safe_pan(rng, length=16, prefix=(4,)):
 
 
 def draw_expiry_slash(y, top, left, w=7, h=15, fill=DIGIT_FILL, thick=3,
-                      style="flat"):
+                      style="flat", relief=None):
     """Diagonal slash stroke (bottom-left -> top-right) on a copy of y.
 
     The reference's slash MLP was trained on real embossed card slashes;
@@ -117,7 +122,7 @@ def draw_expiry_slash(y, top, left, w=7, h=15, fill=DIGIT_FILL, thick=3,
         for r in range(h):
             c = int(round((h - 1 - r) * (w - 1) / (h - 1)))
             m[r + 1, c:c + thick] = 1.0
-        d = _emboss_delta(m)
+        d = _emboss_delta(m, *(relief or ()))
         reg = y[top - 1:top - 1 + m.shape[0], left:left + m.shape[1]]
         y[top - 1:top - 1 + m.shape[0], left:left + m.shape[1]] = np.clip(
             reg.astype(np.int32) + d[:reg.shape[0], :reg.shape[1]],
@@ -155,7 +160,7 @@ def _blend_mask(out, mask, x, y, ink):
 
 
 def render_text_small(y, text, y0, x0, size=15, fill=DIGIT_FILL, spacing=None,
-                      style="flat"):
+                      style="flat", relief=None):
     """Render small text (an expiry "08/27") onto a copy of frame y.
 
     text holds digits, "/" and " ". Digits use the reference-tuned expiry
@@ -163,8 +168,8 @@ def render_text_small(y, text, y0, x0, size=15, fill=DIGIT_FILL, spacing=None,
     "/" is the embossed slash stroke; a space draws nothing (size was the
     JAX package's font size for other characters, and a space leaves no
     ink in any). style="emboss": relief glyphs from the same ink masks
-    (_emboss_delta) instead of flat ink. Another character raises a
-    ValueError."""
+    (_emboss_delta, with `relief` as render_digit_cell takes it) instead of
+    flat ink. Another character raises a ValueError."""
     if spacing is None:
         spacing = 13
     base = np.asarray(y)
@@ -188,27 +193,73 @@ def render_text_small(y, text, y0, x0, size=15, fill=DIGIT_FILL, spacing=None,
         _blend_mask(canvas, mask, x + dx, yy + dy, 255 if emboss else fill)
     if emboss:
         m = canvas.astype(np.float32) / 255.0
-        out = np.clip(base.astype(np.int32) + _emboss_delta(m),
+        out = np.clip(base.astype(np.int32)
+                      + _emboss_delta(m, *(relief or ())),
                       0, 255).astype(np.uint8)
     else:
         out = canvas
     for i in slash_positions:
         out = draw_expiry_slash(out, y0, x0 + i * spacing + 1, fill=fill,
-                                style=style)
+                                style=style, relief=relief)
     return out
 
 
 def render_frame_with_expiry(pan, expiry_text, y0=150, width=18.0, offset=30,
                              expiry_y=None, expiry_x=120, seed=0, bg=CARD_BG,
                              noise=1, expiry_size=15, expiry_spacing=13,
-                             style="flat"):
+                             style="flat", relief=None):
     """Card frame with a PAN row and an expiry line below it (expiry_y
     defaults to 35 rows below the PAN row). style="emboss": both lines as
-    relief glyphs."""
+    relief glyphs, with `relief` as render_digit_cell takes it."""
     y = render_frame(pan, y0=y0, width=width, offset=offset, seed=seed,
-                     bg=bg, noise=noise, style=style)
+                     bg=bg, noise=noise, style=style, relief=relief)
     if expiry_y is None:
         expiry_y = y0 + 27 + 35
     return render_text_small(y, expiry_text, expiry_y, expiry_x,
                              size=expiry_size, spacing=expiry_spacing,
-                             style=style)
+                             style=style, relief=relief)
+
+
+def paste_card(card, quad, shape=(480, 640), bg=50):
+    """A 270x428 u8 card pasted into a `shape` u8 preview so that its
+    corners (0, 0), (427, 0), (0, 269), (427, 269) land on quad (4, 2)
+    (x, y), under that perspective; `bg` where no card pixel lands (and
+    where one samples as 0, as the JAX package's accuracy tools paste a
+    card with warp_perspective and fill 0).
+
+    Each preview pixel samples the card bilinearly at the inverse map of
+    its coordinates: the unit square -> quad projective map in closed form
+    and its adjugate, in float64, element by element (no linear-algebra
+    library, whose summation order can differ between machines), so a
+    seed draws the same preview bits on any machine."""
+    (x0, y0), (x1, y1), (x3, y3), (x2, y2) = np.asarray(quad, np.float64)
+    dx1, dx2, dx3 = x1 - x2, x3 - x2, x0 - x1 + x2 - x3
+    dy1, dy2, dy3 = y1 - y2, y3 - y2, y0 - y1 + y2 - y3
+    if dx3 == 0.0 and dy3 == 0.0:
+        g = h = 0.0
+    else:
+        den = dx1 * dy2 - dx2 * dy1
+        g = (dx3 * dy2 - dx2 * dy3) / den
+        h = (dx1 * dy3 - dx3 * dy1) / den
+    a, b, c = x1 - x0 + g * x1, x3 - x0 + h * x3, x0
+    d, e, f = y1 - y0 + g * y1, y3 - y0 + h * y3, y0
+    py, px = np.mgrid[0:shape[0], 0:shape[1]].astype(np.float64)
+    u = (e - f * h) * px + (c * h - b) * py + (b * f - c * e)
+    v = (f * g - d) * px + (a - c * g) * py + (c * d - a * f)
+    w = (d * h - e * g) * px + (b * g - a * h) * py + (a * e - b * d)
+    ch, cw = card.shape
+    sx = u / w * (cw - 1)
+    sy = v / w * (ch - 1)
+    fx0, fy0 = np.floor(sx), np.floor(sy)
+    fx, fy = sx - fx0, sy - fy0
+    ix, iy = fx0.astype(np.int64), fy0.astype(np.int64)
+    img = np.asarray(card, np.float64)
+
+    def tap(r, col):
+        ok = (r >= 0) & (r < ch) & (col >= 0) & (col < cw)
+        return np.where(ok, img[r.clip(0, ch - 1), col.clip(0, cw - 1)], 0.0)
+
+    top = tap(iy, ix) * (1 - fx) + tap(iy, ix + 1) * fx
+    bot = tap(iy + 1, ix) * (1 - fx) + tap(iy + 1, ix + 1) * fx
+    out = np.round(top * (1 - fy) + bot * fy).astype(np.uint8)
+    return np.where(out > 0, out, bg).astype(np.uint8)

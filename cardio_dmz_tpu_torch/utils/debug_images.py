@@ -66,7 +66,7 @@ def dump_expiry_stages(card_y, starting_y_offset, slash_mlp, out_dir,
     """Run the host expiry segmentation and save one PNG per stage.
 
     card_y: (270, 428) uint8 card; starting_y_offset: the PAN row (vseg
-    y offset); slash_mlp: the port's SlashMlp (load_all_params(...)
+    y offset); slash_mlp: the port's slash Mlp (load_all_params(...)
     ["slash_mlp"]). Returns the list of written paths (original, sobel,
     stripes, groups)."""
     from ..scan import expiry_seg_host as seg

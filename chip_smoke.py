@@ -181,6 +181,27 @@ without printing its last line:
             expiry fixture's two dated cards drawn by the PIL-free
             renderer equal the JAX-rendered frames, and the full step
             reads their PANs and dates
+23. reference
+            the compiled card.io C++'s recorded answers
+            (data/ref_session.npz, written by tests/torch_fixture.py
+            through the port's refbridge: the first cases of
+            tools/parity_ab.py's sweeps), the inputs drawn anew by the
+            port's renderer and held against their SHA-256: 64 rectified
+            frames through scan_card_image in one batch (usable and vseg
+            equal on every frame, hseg where usable, digits at least
+            99.5%, scores within 2e-4); 4 PAN and 13 expiry sessions
+            through HostScanner and the device step (every session's PAN
+            and date equal the C++'s on both paths), and every frame of
+            the expiry sessions through the device expiry segmentation
+            (its MM/YY windows equal the C++'s, window for window); 16
+            previews over the
+            four orientations through detect_edges (found equal, corners
+            within 1e-2 px) and transform_card from the C++'s corners
+            (its card bit for bit, through persp QR and the warp), each
+            card's scan against the C++'s; the agreement counts and each
+            kernel's launches in the phase on lines of their own. The
+            card's machine has no OpenCV, so the oracle is never linked
+            here
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times from
 kernel_ms: many calls captured in one CUDA graph and replayed, so the
@@ -196,7 +217,8 @@ PyTorch call's where one computes the same function, and its bound: the
 larger of the bytes it must move over the card's memory rate and its
 operations over the card's peak rate; its launches in phase 20's entry()
 and dry run; its launches in one bench step of each shape (phase 21);
-and its launches in one roofline step of each shape (phase 22). Before
+its launches in one roofline step of each shape (phase 22); and its
+launches in phase 23. Before
 it come a line with every phase's seconds and the total, and
 the card's name and power limit. The last line is {"ok": true,
 "device": {...}}.
@@ -204,6 +226,8 @@ Needs no network, no JAX and no PIL; builds into
 cardio_dmz_tpu_torch/_build/.
 """
 
+import collections
+import hashlib
 import json
 import os
 import statistics
@@ -232,16 +256,43 @@ CURVE_BATCH, CURVE_ITERS, CURVE_SIZES = 32, 8, (1, 2, 4)
 PROFILE_STREAMS, PROFILE_ITERS = 64, 3
 ROOFLINE_STREAMS = 256
 COUNT_STREAMS = 4
+# phase 23: data/ref_session.npz, the compiled card.io C++'s answers to the
+# first cases of tools/parity_ab.py's sweeps (default_rng(2026), in order),
+# written by tests/torch_fixture.py from the port's refbridge (sessions of
+# the tool's lengths: 10 frames a PAN session, 16 an expiry one); the bars
+# are tests/test_cpp_parity.py's. The 13th expiry session of that draw
+# meets the device path's 16-rect cap (ROADMAP.md section 3), so the
+# sessions in order stop at 12; session 50 of the tool's default expiry
+# sweep follows them: its frame 9 holds a slash at 0.69296 in the C++,
+# which a bfloat16 slash MLP reads above 0.7
+REF_FRAMES, REF_PAN_SESSIONS, REF_EXPIRY_SESSIONS, REF_CAMERA = 64, 4, 12, 16
+REF_SWEEP_EXPIRY = (50,)
+REF_ORIENTATIONS = (1, 2, 3, 4)
+REF_DIGIT_AGREEMENT = 0.995   # test_frame_digit_parity_on_synthetic_frames
+REF_SCORE_ATOL = 2e-4         # test_digit_parity_given_reference_hseg
+REF_CORNER_ATOL = 1e-2        # test_detect_edges_and_transform_parity
+# the render parameters of each kind of case, as the fixture stores them
+REF_CASE_KEYS = (
+    ("frame", ("pan", "y0", "width", "offset", "noise", "seed", "style")),
+    ("pan_session", ("pan", "s")),
+    ("expiry", ("text", "pan", "y0", "ex", "ey", "spacing", "noise",
+                "style", "s")),
+    ("camera", ("pan", "y0", "offset", "noise", "seed", "quad",
+                "orientation")))
 # every stream count at which a later phase launches a kernel: HostScanner
 # and the bench's latency shapes (1), the fixture sessions (2, 3), entry()
 # and the dry run's shards (4), the serving loop and the detector on the
 # bench's 16 previews (16), the uneven split (127, 129), the serving shape,
-# the sweeps' batches, the scaling curve's shards and phase 22's counts;
-# each kernel is held against its plain version at each of them
+# the sweeps' batches, the scaling curve's shards, phase 22's counts and
+# phase 23's (its frames in one batch, its sessions as one batch each, an
+# orientation's previews and, 1 to 4 of them, its found cards); each
+# kernel is held against its plain version at each of them
 STREAM_COUNTS = tuple(sorted({
     1, 2, 3, 4, 16, 127, 129, N_STREAMS, SWEEP_ARGS[2], CAMERA_SWEEP_ARGS[2],
     *(CURVE_BATCH // n for n in CURVE_SIZES), PROFILE_STREAMS,
-    ROOFLINE_STREAMS, COUNT_STREAMS}))
+    ROOFLINE_STREAMS, COUNT_STREAMS, REF_FRAMES, REF_PAN_SESSIONS,
+    REF_EXPIRY_SESSIONS + len(REF_SWEEP_EXPIRY),
+    *range(1, REF_CAMERA // len(REF_ORIENTATIONS) + 1)}))
 WARMUP, STEPS = 3, 20
 KERNEL_REPS = 50
 SCORE_ATOL = 1e-5        # the reference's golden tolerance
@@ -2391,6 +2442,244 @@ def profilers_phase(port, kernels, params, expiry, card, dev):
     return {"launches": launches}
 
 
+def sha256(images):
+    """The SHA-256 of a stack of u8 images' bytes, as hex."""
+    return hashlib.sha256(np.ascontiguousarray(
+        np.stack(images), np.uint8).tobytes()).hexdigest()
+
+
+def _strs(a):
+    return [str(x) for x in a.tolist()]
+
+
+def ref_cases(fixture):
+    """The fixture's render parameters as tools/parity_ab.py's cases:
+    (frames, PAN sessions, expiry sessions, camera previews), a list of
+    dicts each (REF_CASE_KEYS)."""
+    def rows(prefix, keys):
+        cols = [fixture[f"{prefix}_{k}"] for k in keys]
+        return [{k: v.item() if v.ndim == 0 else v
+                 for k, v in zip(keys, row)} for row in zip(*cols)]
+    return tuple(rows(prefix, keys) for prefix, keys in REF_CASE_KEYS)
+
+
+def ref_records(fixture, prefix):
+    """The reference's FrameRecords stored under `prefix`."""
+    from cardio_dmz_tpu_torch.refbridge import make_record
+    f = fixture
+    return [make_record(*row) for row in zip(
+        f[f"{prefix}_usable"], f[f"{prefix}_vseg_y"],
+        f[f"{prefix}_vseg_pattern"], f[f"{prefix}_hseg_n"],
+        f[f"{prefix}_hseg_offsets"], f[f"{prefix}_hseg_width"],
+        f[f"{prefix}_scores"])]
+
+
+def window_arrays(windows):
+    """Per-frame MM/YY windows (tools/parity_ab.py's ref_expiry_windows
+    form) as the fixture stores them: their count a frame and (frames, most
+    windows, 12) int32 rows of top, left, 5 char tops, 5 char lefts."""
+    rows = [[(top, left, *tops, *lefts) for top, left, tops, lefts in w]
+            for w in windows]
+    assert all(len(r) == 12 for w in rows for r in w)
+    width = max(1, max(map(len, rows)))
+    out = np.zeros((len(rows), width, 12), np.int32)
+    for t, w in enumerate(rows):
+        out[t, :len(w)] = np.int32(w).reshape(-1, 12)
+    return {"expiry_window_n": np.int32(list(map(len, rows))),
+            "expiry_windows": out}
+
+
+def window_lists(fixture):
+    """window_arrays read back."""
+    return [[(int(r[0]), int(r[1]), tuple(r[2:7].tolist()),
+              tuple(r[7:].tolist())) for r in w[:n]]
+            for w, n in zip(fixture["expiry_windows"],
+                            fixture["expiry_window_n"])]
+
+
+def draw_ref_inputs(fixture):
+    """The fixture's frames, sessions and previews drawn anew by the port's
+    renderer (host numpy), each batch held against its stored SHA-256:
+    (cases, frames, PAN sessions, expiry sessions, (y, cb) previews)."""
+    from cardio_dmz_tpu_torch.tools import parity_ab as ab
+    cases = ref_cases(fixture)
+    frame_cases, pan_cases, expiry_cases, camera_cases = cases
+    frames = np.stack([ab.render_frame_case(c) for c in frame_cases])
+    pan_sessions = np.stack([ab.render_pan_session(c) for c in pan_cases])
+    expiry_sessions = np.stack([ab.render_expiry_session(c)
+                                for c in expiry_cases])
+    y, cb = map(np.stack, zip(*[ab.render_camera_case(c)
+                                for c in camera_cases]))
+    for name, drawn in (("frame", frames), ("pan_session", pan_sessions),
+                        ("expiry", expiry_sessions), ("camera", y)):
+        want = str(fixture[f"{name}_sha256"])
+        if sha256(drawn) != want:
+            raise AssertionError(f"the renderer drew other {name} inputs "
+                                 f"than ref_session.npz records "
+                                 f"({sha256(drawn)} != {want})")
+    return cases, frames, pan_sessions, expiry_sessions, (y, cb)
+
+
+def _segmentation_agrees(ours, ref):
+    """usable and vseg equal, and where usable the hseg too."""
+    return (ours.usable == ref.usable
+            and ours.vseg_y_offset == ref.vseg_y_offset
+            and ours.vseg_pattern_type == ref.vseg_pattern_type
+            and (not ref.usable or ours.same_segmentation(ref)))
+
+
+def compare_records(ours, refs, counts, prefix):
+    """Add one record list's agreement to counts; returns the indices that
+    disagree on segmentation or on a score beyond REF_SCORE_ATOL."""
+    bad = []
+    for i, (o, r) in enumerate(zip(ours, refs)):
+        counts[f"{prefix}_frames"] += 1
+        if not _segmentation_agrees(o, r):
+            bad.append(i)
+            continue
+        counts[f"{prefix}_segmentation_agree"] += 1
+        if not r.usable:
+            continue
+        n = r.hseg_n_offsets
+        counts["digits"] += n
+        counts["digit_agree"] += sum(a == b for a, b in zip(o.digits,
+                                                            r.digits))
+        err = float(np.abs(o.scores[:n] - r.scores[:n]).max(initial=0.0))
+        counts["score_max_abs_err"] = max(counts["score_max_abs_err"], err)
+        if err > REF_SCORE_ATOL:
+            bad.append(i)
+    return bad
+
+
+def reference_sessions(params, fixture, pan_sessions, expiry_sessions, dev):
+    """(b): each session through HostScanner and through the device step;
+    [(path, session, got, want)] of every disagreement."""
+    from cardio_dmz_tpu_torch.tools import parity_ab as ab
+    ref_pans = _strs(fixture["pan_session_ref_pan"])
+    ref_exp_pans = _strs(fixture["expiry_ref_pan"])
+    ref_dates = [(int(m), int(y)) if m else None for m, y in zip(
+        fixture["expiry_ref_month"], fixture["expiry_ref_year"])]
+    want = [(p or None, None) for p in ref_pans] + [
+        (p or None, d) for p, d in zip(ref_exp_pans, ref_dates)]
+    host = [ab.host_session(params, s, scan_expiry=False)
+            for s in pan_sessions]
+    host += [ab.host_session(params, s, scan_expiry=True)
+             for s in expiry_sessions]
+    device = ab.device_sessions(params, pan_sessions, False, dev)
+    device += ab.device_sessions(params, expiry_sessions, True, dev)
+    bad = []
+    for path, reads in (("host", host), ("device", device)):
+        bad += [(path, k, got, w) for k, (got, w) in
+                enumerate(zip(reads, want)) if got != w]
+    return bad, len(want)
+
+
+def reference_expiry_windows(params, fixture, expiry_sessions, counts,
+                             dev):
+    """(b): the device expiry segmentation on every frame of the expiry
+    sessions (a session's frames as one batch of streams) against the
+    C++'s groups, window for window; the (session, frame) that differ."""
+    from cardio_dmz_tpu_torch.tools import parity_ab as ab
+    want = window_lists(fixture)
+    t_n = expiry_sessions.shape[1]
+    bad = []
+    for k, frames in enumerate(expiry_sessions):
+        for t, ours in enumerate(ab.port_expiry_windows(params, frames, dev)):
+            ref = want[k * t_n + t]
+            counts["expiry_frames"] += 1
+            counts["expiry_windows"] += len(ref)
+            if ours == ref:
+                counts["expiry_frame_windows_agree"] += 1
+            else:
+                bad.append((k, t))
+    return bad
+
+
+def reference_camera(params, fixture, cases, previews, counts, dev):
+    """(c): found, corners, the kernels' card from the reference's corners
+    (its SHA-256 against the reference card's) and the digits read from
+    it; the indices that disagree."""
+    from cardio_dmz_tpu_torch.tools import parity_ab as ab
+    y, cb = previews
+    found_ref = fixture["camera_found"]
+    corners_ref = fixture["camera_corners"]
+    card_sha = _strs(fixture["camera_card_sha256"])
+    refs = ref_records(fixture, "camera")
+    bad = []
+    for orientation in REF_ORIENTATIONS:
+        idx = [i for i, c in enumerate(cases)
+               if c["orientation"] == orientation]
+        found, corners, _ = ab.port_camera(y[idx], cb[idx], orientation, dev)
+        both = []
+        for k, i in enumerate(idx):
+            counts["camera_frames"] += 1
+            if bool(found[k]) != bool(found_ref[i]) or (
+                    found_ref[i] and np.abs(corners[k] - corners_ref[i]).max()
+                    > REF_CORNER_ATOL):
+                bad.append((i, "corners"))
+                continue
+            counts["camera_found_and_corners_agree"] += 1
+            if found_ref[i]:
+                both.append(i)
+        if not both:
+            continue
+        cards = ab.port_cards_from_corners(y[both], corners_ref[both],
+                                           orientation, dev)
+        for i, c in zip(both, cards):
+            counts["camera_cards"] += 1
+            if sha256([c]) == card_sha[i]:
+                counts["camera_card_bit_exact"] += 1
+            else:
+                bad.append((i, "card"))
+        ours = ab.port_frames(params, cards, dev)
+        bad += [(both[k], "scan") for k in compare_records(
+            ours, [refs[i] for i in both], counts, "camera_card")]
+    return bad
+
+
+def reference_phase(port, kernels, params, dev):
+    """Phase 23: the compiled card.io C++'s recorded answers
+    (data/ref_session.npz) replayed through the port's serving routes:
+    (a) the rectified frames through scan_card_image (digit prep) in one
+    batch of streams, (b) the sessions through HostScanner and the device
+    step, and every frame of the expiry sessions through the device
+    expiry segmentation, (c) the previews through detect_edges and
+    transform_card (persp QR, warp), and the reference's corners through
+    transform_card."""
+    phase("23 reference")
+    t0 = time.perf_counter()
+    from cardio_dmz_tpu_torch.tools import parity_ab as ab
+    fixture = load_npz(fixture_path(port, "ref_session.npz"))
+    cases, frames, pan_sessions, expiry_sessions, previews = \
+        draw_ref_inputs(fixture)
+    counts = collections.defaultdict(int, score_max_abs_err=0.0)
+    reset_launches(kernels)
+    bad = {"frames": compare_records(
+        ab.port_frames(params, frames, dev), ref_records(fixture, "frame"),
+        counts, "frame")}
+    bad["sessions"], counts["sessions"] = reference_sessions(
+        params, fixture, pan_sessions, expiry_sessions, dev)
+    bad["expiry_windows"] = reference_expiry_windows(
+        params, fixture, expiry_sessions, counts, dev)
+    bad["camera"] = reference_camera(params, fixture, cases[3], previews,
+                                     counts, dev)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    counts["sessions_agree"] = counts["sessions"] - len(
+        {k for _, k, _, _ in bad["sessions"]})
+    share = counts["digit_agree"] / max(counts["digits"], 1)
+    print("reference agreement: " + json.dumps(dict(counts)))
+    print(f"reference launches: {json.dumps(launches)}; "
+          f"{time.perf_counter() - t0:.3f} s")
+    if any(bad.values()) or share < REF_DIGIT_AGREEMENT:
+        raise AssertionError(f"the port disagrees with the compiled "
+                             f"reference: {bad}; digits {share:.4f}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was not launched in phase 23: "
+                             f"{launches}")
+    return {"launches": launches, "counts": dict(counts)}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2436,6 +2725,7 @@ def main():
     hooks = entry_phase(port, kernels, card, dev)
     tools = tools_phase(port, kernels, params, card, dev)
     profilers = profilers_phase(port, kernels, params, expiry, card, dev)
+    reference = reference_phase(port, kernels, params, dev)
 
     seconds, total = phase_seconds()
     print(f"phase seconds {json.dumps(seconds)}; total {total:.3f} s")
@@ -2456,6 +2746,7 @@ def main():
                                 tools["launches"].items()},
         "launches_roofline_step": {shape: n[name] for shape, n in
                                    profilers["launches"].items()},
+        "launches_reference_phase": reference["launches"][name],
         **measured[name]} for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

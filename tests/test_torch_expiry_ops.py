@@ -112,14 +112,6 @@ def test_slash_mlp_matches_jax():
                                atol=TOL)
 
 
-def test_slash_band_weights_are_the_bf16_of_w_over_255():
-    w = np_params()["slash_mlp"]["hidden_w"]
-    ref = np.asarray((jnp.asarray(w) / 255.0).astype(jnp.bfloat16).astype(
-        jnp.float32))
-    np.testing.assert_array_equal(to_np(port_params()["slash_mlp"].band_w),
-                                  ref)
-
-
 # --- segmentation stages ---------------------------------------------------
 
 def _frames_and_starts():
@@ -266,12 +258,30 @@ def _slash_inputs():
     return bands, roffs, lefts
 
 
-def test_slash_probs_match_jax():
-    bands, roffs, lefts = _slash_inputs()
+class _NoBfloat16:
+    """jax.numpy with bfloat16 read as float32: the JAX package's device
+    functions without the bfloat16 rounding of their TPU lowering."""
+    bfloat16 = jnp.float32
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def _jax_slash_probs(bands, roffs, lefts):
     slash = {k: jnp.asarray(v) for k, v in np_params()["slash_mlp"].items()}
-    ref = np.asarray(jax.jit(jax.vmap(
+    return np.asarray(jax.jit(jax.vmap(
         lambda b, r, l: jx.slash_probs_conv(slash, b, r, l)))(
         bands, roffs, lefts))
+
+
+def test_slash_probs_match_jax(monkeypatch):
+    """The device path's slash probabilities against the JAX package's
+    slash_probs_conv (its window gather and product) with its bfloat16
+    rounding left out: the port computes in float32, as the compiled
+    reference does (test_slash_band_weights_are_the_bf16_of_w_over_255)."""
+    bands, roffs, lefts = _slash_inputs()
+    monkeypatch.setattr(jx, "jnp", _NoBfloat16())
+    ref = _jax_slash_probs(bands, roffs, lefts)
     got = to_np(tx.slash_probs_conv(port_params()["slash_mlp"], _t(bands),
                                     _t(roffs), _t(lefts)))
     np.testing.assert_allclose(got, ref, atol=SLASH_TOL)
@@ -279,6 +289,50 @@ def test_slash_probs_match_jax():
     # no probability of these inputs within the tolerance of the threshold
     np.testing.assert_array_equal(got > 0.7, ref > 0.7)
     assert (np.abs(ref - 0.7) > SLASH_TOL).all()
+
+
+def test_slash_band_weights_are_the_bf16_of_w_over_255():
+    """The one place the port's device path departs from the JAX
+    package's on purpose (ROADMAP.md section 3): the JAX slash_probs_conv
+    rounds the band and hidden_w / 255 to bfloat16, its TPU's input type,
+    and that rounding alone parts it from the port. The port's function
+    given the rounded band and the rounded weights (times 255, as it
+    divides the crop by 255) equals the JAX device path; given the true
+    ones it parts from it by more than the tolerance."""
+    bands, roffs, lefts = _slash_inputs()
+    ref = _jax_slash_probs(bands, roffs, lefts)
+    p = np_params()["slash_mlp"]
+    w = np.asarray((jnp.asarray(p["hidden_w"]) / 255.0).astype(
+        jnp.bfloat16).astype(jnp.float32))
+    rounded = zoo.Mlp(*(_t(v) for v in (w * np.float32(255.0), p["hidden_b"],
+                                        p["logistic_w"], p["logistic_b"])))
+    bands16 = np.asarray(jnp.asarray(bands).astype(jnp.bfloat16)).astype(
+        np.int32)
+    got = to_np(tx.slash_probs_conv(rounded, _t(bands16), _t(roffs),
+                                    _t(lefts)))
+    np.testing.assert_allclose(got, ref, atol=SLASH_TOL)
+    ours = to_np(tx.slash_probs_conv(port_params()["slash_mlp"], _t(bands),
+                                     _t(roffs), _t(lefts)))
+    assert np.abs(ours - ref).max() > SLASH_TOL
+
+
+def test_device_slash_probs_equal_host():
+    """slash_probs_conv (the device path's gather of each window's crop)
+    against the host oracle's _slash_probs on the same rects (the crop
+    sliced from the band at the clipped position)."""
+    from cardio_dmz_tpu_torch.scan import expiry_seg_host as H
+    from cardio_dmz_tpu_torch.scan.expiry_types import CharacterRect
+    bands, roffs, lefts = _slash_inputs()
+    slash = port_params()["slash_mlp"]
+    got = to_np(tx.slash_probs_conv(slash, _t(bands), _t(roffs), _t(lefts)))
+    tops = np.clip(roffs, 0, bands.shape[-2] - 16)
+    left0 = np.clip(lefts, 0, bands.shape[-1] - 11)
+    for s, i in np.ndindex(bands.shape[:2]):
+        rects = [CharacterRect(int(t), int(l), 0)
+                 for t, l in zip(tops[s, i], left0[s, i])]
+        np.testing.assert_allclose(
+            got[s, i], H._slash_probs(slash, bands[s, i], rects), atol=TOL,
+            err_msg=f"{s}, {i}")
 
 
 def test_expiry_conv_matrices_equal_jax():

@@ -226,7 +226,7 @@ def test_prepare_char_for_cat_matches_jax():
     y, _ = _cases()["seed0"]
     for top, left in ((214, 120), (214, 133), (0, 0), (254, 417)):
         np.testing.assert_allclose(
-            pcat.prepare_char_for_cat(y, top, left),
+            pcat.prepare_char_for_cat(y, top, left, device="cpu"),
             jcat.prepare_char_for_cat(y, top, left), atol=1e-7)
 
 

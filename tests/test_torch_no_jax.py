@@ -6,7 +6,8 @@ training (a batch of each generator, a fit step), the tools (the
 renderer, the float warp, the bench, both accuracy sweeps, the scaling
 curve, the debug timers and trace, load_params), and the profilers' work
 counter, a roofline record and stage_bytes on the CPU, the dated-card
-renderer and the debug image dump."""
+renderer and the debug image dump; and the compiled-reference bridge with
+the tools that use it."""
 
 import os
 import subprocess
@@ -143,6 +144,53 @@ leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
 assert not leaked, leaked
 print("ok")
 """
+
+
+_REFBRIDGE_SCRIPT = """
+import sys
+sys.modules["jax"] = None
+sys.modules["PIL"] = None
+import contextlib, io
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from cardio_dmz_tpu_torch import refbridge, synthetic
+from cardio_dmz_tpu_torch.tools import parity_ab, tune_emboss  # noqa: F401
+if refbridge.available():
+    from cardio_dmz_tpu_torch.models import load_all_params
+    from cardio_dmz_tpu_torch.scan import scan_card_image
+    oracle = refbridge.RefOracle.shared()
+    y = synthetic.render_frame("4111111111111111", seed=1)
+    ref = refbridge.ref_frame_record(oracle.scan_card_image(
+        y, scan_expiry=False))
+    ours = refbridge.frame_records(scan_card_image(
+        load_all_params("cpu"), torch.from_numpy(y[None])))[0]
+    assert ours.same_segmentation(ref) and ours.digits == ref.digits
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = parity_ab.main(["--device", "cpu", "--frames", "1",
+                                 "--sessions", "0", "--expiry-sessions", "0",
+                                 "--camera-frames", "0"])
+    assert report["frames"] == 1 and report["usable_agreement_pct"] == 100.0
+    print("linked")
+leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("cardio_dmz_tpu", "jaxlib", "PIL"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_refbridge_runs_without_jax():
+    """refbridge imports with jax and PIL unimportable; where the oracle
+    links, one scan_card_image comparison and a one-frame parity_ab run
+    pass; neither refbridge nor the tools import the JAX package."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _REFBRIDGE_SCRIPT],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    from cardio_dmz_tpu_torch import refbridge
+    want = ["linked", "ok"] if refbridge.available() else ["ok"]
+    assert proc.stdout.split() == want
 
 
 def test_port_runs_without_jax():

@@ -55,6 +55,20 @@ value_and_grad's loss and gradients on the first batch, and a three-step
 fit at lr 3e-3 on the three batches (its losses and final parameters);
 and __graft_entry__.entry()'s outputs on its four noise frames.
 
+ref_session.npz, the compiled card.io C++ (the port's refbridge, linked
+from native/refshim/build/; no JAX): the render parameters of the first
+cases of cardio_dmz_tpu_torch/tools/parity_ab.py's sweeps, drawn from its
+default_rng(2026) in its order (64 rectified frames, 4 PAN sessions of 10
+frames and 12 dated expiry sessions of 16, as the tool draws them, and 16
+camera previews cycling the four orientations) and of session 50 of the
+tool's default expiry sweep, a SHA-256 of each drawn batch, and the
+reference's answers: each frame's usable, vseg, hseg and 160 scores;
+each session's PAN and date; the MM/YY groups ref_scan_card_image finds
+on every frame of the expiry sessions; each preview's found flag and
+corners, the SHA-256 of the card ref_transform_card warps from them and
+the reference's scan of that card.
+No frame is stored, and none is chosen for agreeing.
+
 sweep_session.npz, the accuracy sweeps: tools/accuracy_sweep.py's
 run_sweep at its defaults (512 sessions of 8 frames, batch 64, seed 2026)
 and run_camera_sweep at its (128 sessions of 8 frames, batch 32, seed
@@ -65,7 +79,7 @@ chip_smoke.py replays them through the port on the card, where neither
 JAX nor the renderer is installed. Write the files anew with
 
     python tests/torch_fixture.py [smoke camera expiry host glyphs
-                                   expiry_glyphs train sweep]
+                                   expiry_glyphs train sweep ref]
 
 (all of them when none is named).
 """
@@ -111,6 +125,7 @@ GLYPH_FIXTURE = os.path.join(_DATA, "train_glyphs.npz")
 EXPIRY_GLYPH_FIXTURE = os.path.join(_DATA, "expiry_glyphs.npz")
 TRAIN_FIXTURE = os.path.join(_DATA, "train_session.npz")
 SWEEP_FIXTURE = os.path.join(_DATA, "sweep_session.npz")
+REF_FIXTURE = os.path.join(_DATA, "ref_session.npz")
 NOW = (2026, 1)
 N_FRAMES = 6
 # (pan, y0, noise): two readable PANs, a wrong-Luhn PAN and an upside-down
@@ -959,6 +974,85 @@ def sweep_fixture_arrays():
             **_sweep_arrays("camera", *jax_camera_sweep(*CAMERA_SWEEP)[:3])}
 
 
+def _record_arrays(prefix, records):
+    """FrameRecords as arrays under prefix."""
+    return {f"{prefix}_usable": np.array([r.usable for r in records]),
+            f"{prefix}_vseg_y": np.int32([r.vseg_y_offset for r in records]),
+            f"{prefix}_vseg_pattern": np.int32(
+                [r.vseg_pattern_type for r in records]),
+            f"{prefix}_hseg_n": np.int32([r.hseg_n_offsets for r in records]),
+            f"{prefix}_hseg_offsets": np.int32(
+                [list(r.hseg_offsets) + [0] * (16 - r.hseg_n_offsets)
+                 for r in records]),
+            f"{prefix}_hseg_width": np.float32(
+                [r.hseg_number_width for r in records]),
+            f"{prefix}_scores": np.stack([r.scores for r in records])}
+
+
+def ref_fixture_arrays():
+    """What ref_session.npz holds (module docstring), from the port's
+    refbridge: the C++'s answers, not JAX's."""
+    from chip_smoke import (
+        REF_CAMERA, REF_CASE_KEYS, REF_EXPIRY_SESSIONS, REF_FRAMES,
+        REF_ORIENTATIONS, REF_PAN_SESSIONS, REF_SWEEP_EXPIRY, ref_cases,
+        sha256, window_arrays)
+    from cardio_dmz_tpu_torch import refbridge
+    from cardio_dmz_tpu_torch.tools import parity_ab as ab
+
+    oracle = refbridge.RefOracle.shared()
+    rng = np.random.default_rng(2026)
+    frame_cases = ab.frame_cases(rng, REF_FRAMES)
+    pan_cases = ab.pan_session_cases(rng, REF_PAN_SESSIONS)
+    expiry_cases = ab.expiry_session_cases(rng, REF_EXPIRY_SESSIONS)
+    expiry_cases += [ab.sweep_expiry_case(k) for k in REF_SWEEP_EXPIRY]
+    camera_cases = ab.camera_cases(rng, REF_CAMERA, REF_ORIENTATIONS)
+
+    frames = [ab.render_frame_case(c) for c in frame_cases]
+    pan_sessions = [ab.render_pan_session(c) for c in pan_cases]
+    expiry_sessions = [ab.render_expiry_session(c) for c in expiry_cases]
+    previews = [ab.render_camera_case(c) for c in camera_cases]
+
+    pan_reads = [ab.ref_session(oracle, s, scan_expiry=False)
+                 for s in pan_sessions]
+    expiry_reads = [ab.ref_session(oracle, s, scan_expiry=True)
+                    for s in expiry_sessions]
+    camera = [ab.ref_camera(oracle, y, cb, c["orientation"])
+              for (y, cb), c in zip(previews, camera_cases)]
+    blank = np.zeros((270, 428), np.uint8)
+    camera_scans = ab.ref_frames(oracle, [card if ok else blank
+                                          for ok, _, card in camera])
+    drawn = (frame_cases, pan_cases, expiry_cases, camera_cases)
+    arrays = {f"{prefix}_{k}": np.array([c[k] for c in cases])
+              for (prefix, keys), cases in zip(REF_CASE_KEYS, drawn)
+              for k in keys}
+    arrays.update({
+        "frame_sha256": np.array(sha256(frames)),
+        **_record_arrays("frame", ab.ref_frames(oracle, frames)),
+        "pan_session_sha256": np.array(sha256(pan_sessions)),
+        "pan_session_ref_pan": np.array([p or "" for p, _ in pan_reads]),
+        "expiry_sha256": np.array(sha256(expiry_sessions)),
+        "expiry_ref_pan": np.array([p or "" for p, _ in expiry_reads]),
+        "expiry_ref_month": np.int32([d[0] if d else 0
+                                      for _, d in expiry_reads]),
+        "expiry_ref_year": np.int32([d[1] if d else 0
+                                     for _, d in expiry_reads]),
+        **window_arrays(ab.ref_expiry_windows(
+            oracle, np.concatenate(expiry_sessions))),
+        "camera_sha256": np.array(sha256([y for y, _ in previews])),
+        "camera_found": np.array([ok for ok, _, _ in camera]),
+        "camera_corners": np.stack([c for _, c, _ in camera]),
+        "camera_card_sha256": np.array([sha256([card]) if ok else ""
+                                        for ok, _, card in camera]),
+        **_record_arrays("camera", camera_scans),
+    })
+    # the reader in chip_smoke.py rebuilds the cases this writer drew
+    for want, got in zip(drawn, ref_cases(arrays)):
+        for a, b in zip(want, got):
+            assert a.keys() == b.keys() and all(
+                np.array_equal(a[k], b[k]) for k in a), (a, b)
+    return arrays
+
+
 WRITERS = {"smoke": (FIXTURE, fixture_arrays),
            "camera": (CAMERA_FIXTURE, camera_fixture_arrays),
            "expiry": (EXPIRY_FIXTURE, expiry_fixture_arrays),
@@ -966,7 +1060,8 @@ WRITERS = {"smoke": (FIXTURE, fixture_arrays),
            "glyphs": (GLYPH_FIXTURE, glyph_arrays),
            "expiry_glyphs": (EXPIRY_GLYPH_FIXTURE, expiry_glyph_arrays),
            "train": (TRAIN_FIXTURE, train_fixture_arrays),
-           "sweep": (SWEEP_FIXTURE, sweep_fixture_arrays)}
+           "sweep": (SWEEP_FIXTURE, sweep_fixture_arrays),
+           "ref": (REF_FIXTURE, ref_fixture_arrays)}
 
 
 if __name__ == "__main__":
