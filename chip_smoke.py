@@ -3,7 +3,8 @@ step on rectified cards, the camera step in front of it, both with the
 in-graph expiry read (the full steps), the host side of serving around
 them (the single-stream HostScanner, checkpoints, the step split over a
 device list, the serving loop behind the frame pump), training, the
-entry hooks (entry, dryrun_multichip), the tools, and the profilers.
+entry hooks (entry, dryrun_multichip), the tools, the profilers, the
+compiled reference's recorded answers and the weights extraction tool.
 
     python3 chip_smoke.py            (from the repo root, on a CUDA machine)
 
@@ -202,6 +203,16 @@ without printing its last line:
             kernel's launches in the phase on lines of their own. The
             card's machine has no OpenCV, so the oracle is never linked
             here
+24. weights
+            the committed weights (cardio_dmz_tpu/models/params/*.npz)
+            written as the reference's generated sources
+            (generated_source_text) and read back by
+            tools/extract_weights.py: all 49 arrays equal the committed
+            ones bit for bit; each extracted model meets its golden
+            output on the card within 1e-5; the smoke fixture's frames
+            through scan_card_image with the extracted weights give the
+            scores, usable flags and vseg offsets of the committed
+            weights' run bit for bit, digit prep launched
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times from
 kernel_ms: many calls captured in one CUDA graph and replayed, so the
@@ -217,8 +228,8 @@ PyTorch call's where one computes the same function, and its bound: the
 larger of the bytes it must move over the card's memory rate and its
 operations over the card's peak rate; its launches in phase 20's entry()
 and dry run; its launches in one bench step of each shape (phase 21);
-its launches in one roofline step of each shape (phase 22); and its
-launches in phase 23. Before
+its launches in one roofline step of each shape (phase 22); its
+launches in phase 23; and its launches in phase 24. Before
 it come a line with every phase's seconds and the total, and
 the card's name and power limit. The last line is {"ok": true,
 "device": {...}}.
@@ -2680,6 +2691,134 @@ def reference_phase(port, kernels, params, dev):
     return {"launches": launches, "counts": dict(counts)}
 
 
+# phase 24: each array of a model's .npz and the role comment of its blob in
+# the reference's generated source, in the order the source holds them (the
+# expiry conv's two "conv W" and two "conv b" blobs by layer)
+SOURCE_ROLES = {
+    "conv_w": "conv W", "conv_b": "conv b",
+    "conv1_w": "conv W", "conv1_b": "conv b",
+    "conv2_w": "conv W", "conv2_b": "conv b",
+    "hidden_w": "hidden W", "hidden_b": "hidden b",
+    "logistic_w": "logistic W", "logistic_b": "logistic b",
+    "test_input": "test input", "test_output": "test output",
+    "test_conv1_out": "test output layer 1",
+    "test_conv2_out": "test output layer 2",
+    "test_hidden_out": "test output layer 3",
+}
+
+
+def generated_source_text(arrays):
+    """A model source in the format of the reference's generated C++: each
+    array of `arrays` ({name: float32 array}, keys of SOURCE_ROLES) as a
+    `static uint8_t data_<8 hex>[<n>] = { // <role>` blob of 16
+    little-endian bytes a line closed by `};`, in SOURCE_ROLES' order, with
+    code lines and a static array without a role comment between them."""
+    lines = ["// generated model source", "#include <stdint.h>", ""]
+    for i, key in enumerate(k for k in SOURCE_ROLES if k in arrays):
+        raw = np.ascontiguousarray(arrays[key], "<f4").tobytes()
+        tag = hashlib.sha256(key.encode() + raw).hexdigest()[:8]
+        lines.append(f"static uint8_t data_{tag}[{len(raw)}] = {{ // "
+                     f"{SOURCE_ROLES[key]}")
+        lines += ["  " + " ".join(f"0x{b:02X}," for b in raw[j:j + 16])
+                  for j in range(0, len(raw), 16)]
+        lines += ["};", "", f"static float layer_{i}(const float* in) {{",
+                  f"  return in[{i}];", "}", ""]
+        if i == 1:
+            lines += ["static uint8_t data_00000000[4] = {",
+                      "  0x00, 0x00, 0x80, 0x3F,", "};", ""]
+    return "\n".join(lines) + "\n"
+
+
+def write_generated_sources(root, models):
+    """Write each model of `models` ({model: {name: array}}) under `root`
+    at the path of tools/extract_weights.JOBS; returns {model: path}."""
+    from cardio_dmz_tpu_torch.tools.extract_weights import JOBS
+    paths = {}
+    for name, arrays in models.items():
+        paths[name] = os.path.join(root, JOBS[name][1])
+        os.makedirs(os.path.dirname(paths[name]), exist_ok=True)
+        with open(paths[name], "w") as f:
+            f.write(generated_source_text(arrays))
+    return paths
+
+
+def weights_phase(port, kernels, params, fixture, dev):
+    """Phase 24: the committed weights written as the reference's generated
+    sources and extracted again by tools/extract_weights.py, then held
+    bit for bit against the committed ones, against their golden vectors
+    on the card and through scan_card_image."""
+    phase("24 weights")
+    import contextlib
+    import io
+    import tempfile
+    from cardio_dmz_tpu_torch.models.selfcheck import TOLERANCE
+    from cardio_dmz_tpu_torch.models.weights import PARAM_DIR
+    from cardio_dmz_tpu_torch.tools import extract_weights
+    t0 = time.perf_counter()
+    committed = {name: load_npz(os.path.join(PARAM_DIR, f"{name}.npz"))
+                 for name in extract_weights.JOBS}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_generated_sources(os.path.join(tmp, "reference"), committed)
+        out = os.path.join(tmp, "params")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = extract_weights.main(["--reference",
+                                       os.path.join(tmp, "reference"),
+                                       "--out", out])
+        extracted = {name: load_npz(os.path.join(out, f"{name}.npz"))
+                     for name in committed}
+    if rc != 0:
+        raise AssertionError(f"extract_weights.main returned {rc}")
+    arrays = [(name, key) for name, a in committed.items() for key in a]
+    differ = [f"{name}.{key}" for name, key in arrays
+              if key not in extracted[name]
+              or extracted[name][key].dtype != np.dtype("<f4")
+              or extracted[name][key].shape != committed[name][key].shape
+              or extracted[name][key].tobytes()
+              != committed[name][key].tobytes()]
+    extra = [f"{name}.{key}" for name, a in extracted.items() for key in a
+             if key not in committed[name]]
+    print(f"extracted arrays equal to the committed ones bit for bit: "
+          f"{len(arrays) - len(differ)} of {len(arrays)}")
+    if differ or extra:
+        raise AssertionError(f"extracted weights differ: {differ}; "
+                             f"extra {extra}")
+    golden = {}
+    for name, a in extracted.items():
+        module = port.models.module_from_numpy(name, a, dev)
+        out = module(torch.from_numpy(a["test_input"]).to(dev))
+        golden[name] = float((out.cpu() - torch.from_numpy(
+            a["test_output"])).abs().max())
+    print(f"golden max abs err on {dev}: " + json.dumps(golden))
+    if max(golden.values()) > TOLERANCE:
+        raise AssertionError(f"an extracted model misses its golden output "
+                             f"by more than {TOLERANCE}: {golden}")
+    extracted_params = port.models.params_from_numpy(extracted, dev)
+    frames = torch.from_numpy(fixture["frames"]).to(dev)
+    reset_launches(kernels)
+    ours = [port.scan.scan_card_image(extracted_params, frames[:, t])
+            for t in range(frames.shape[1])]
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    want = [port.scan.scan_card_image(params, frames[:, t])
+            for t in range(frames.shape[1])]
+    for t, (a, b) in enumerate(zip(ours, want)):
+        for key, x, y in (("scores", a.scores, b.scores),
+                          ("usable", a.usable, b.usable),
+                          ("vseg y_offset", a.vseg.y_offset,
+                           b.vseg.y_offset)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"frame {t}: {key} with the extracted "
+                                     f"weights differs from the committed "
+                                     f"weights' run")
+    print(f"weights launches: {json.dumps(launches)}; "
+          f"{frames.shape[0] * frames.shape[1]} frames scanned with the "
+          f"extracted weights equal the committed weights' run; "
+          f"{time.perf_counter() - t0:.3f} s")
+    if launches["digit_prep"] == 0:
+        raise AssertionError("phase 24 never launched digit prep")
+    return {"launches": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2726,6 +2865,7 @@ def main():
     tools = tools_phase(port, kernels, params, card, dev)
     profilers = profilers_phase(port, kernels, params, expiry, card, dev)
     reference = reference_phase(port, kernels, params, dev)
+    weights = weights_phase(port, kernels, params, fixture, dev)
 
     seconds, total = phase_seconds()
     print(f"phase seconds {json.dumps(seconds)}; total {total:.3f} s")
@@ -2747,6 +2887,7 @@ def main():
         "launches_roofline_step": {shape: n[name] for shape, n in
                                    profilers["launches"].items()},
         "launches_reference_phase": reference["launches"][name],
+        "launches_weights_phase": weights["launches"][name],
         **measured[name]} for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,8 @@ training (a batch of each generator, a fit step), the tools (the
 renderer, the float warp, the bench, both accuracy sweeps, the scaling
 curve, the debug timers and trace, load_params), and the profilers' work
 counter, a roofline record and stage_bytes on the CPU, the dated-card
-renderer and the debug image dump; and the compiled-reference bridge with
-the tools that use it."""
+renderer and the debug image dump; the compiled-reference bridge with
+the tools that use it; and the weights extraction tool."""
 
 import os
 import subprocess
@@ -191,6 +191,48 @@ def test_refbridge_runs_without_jax():
     from cardio_dmz_tpu_torch import refbridge
     want = ["linked", "ok"] if refbridge.available() else ["ok"]
     assert proc.stdout.split() == want
+
+
+_EXTRACT_SCRIPT = """
+import sys
+sys.modules["jax"] = None
+sys.modules["PIL"] = None
+import contextlib, io, os, tempfile
+import numpy as np
+from chip_smoke import write_generated_sources
+from cardio_dmz_tpu_torch.models.weights import PARAM_DIR
+from cardio_dmz_tpu_torch.tools import extract_weights
+models = {}
+for name in extract_weights.JOBS:
+    with np.load(os.path.join(PARAM_DIR, name + ".npz")) as f:
+        models[name] = {k: f[k] for k in f.files}
+with tempfile.TemporaryDirectory() as tmp:
+    paths = write_generated_sources(os.path.join(tmp, "ref"), models)
+    blobs = extract_weights.parse_blobs(paths["vseg_mlp"])
+    assert [role for _, role, _ in blobs][:2] == ["hidden W", "hidden b"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert extract_weights.main(["--reference", os.path.join(tmp, "ref"),
+                                     "--out", os.path.join(tmp, "out")]) == 0
+    for name, arrays in models.items():
+        with np.load(os.path.join(tmp, "out", name + ".npz")) as f:
+            assert all(f[k].tobytes() == a.tobytes()
+                       for k, a in arrays.items())
+leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("cardio_dmz_tpu", "jaxlib", "PIL"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_extract_weights_runs_without_jax():
+    """tools/extract_weights.py parses a source and writes the six models
+    with jax and PIL unimportable, importing nothing of the JAX package."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _EXTRACT_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 def test_port_runs_without_jax():

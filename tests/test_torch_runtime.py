@@ -32,7 +32,7 @@ def test_binding_builds_into_the_ports_build_directory():
     assert os.path.exists(ingest._SO)
     assert os.sep + os.path.join("cardio_dmz_tpu_torch", "_build") + os.sep \
         in ingest._SO
-    assert ingest._SRC.endswith(os.path.join("cardio_dmz_tpu", "native",
+    assert ingest._SRC.endswith(os.path.join("cardio_dmz_tpu_torch", "csrc",
                                              "framepump.cpp"))
 
 
