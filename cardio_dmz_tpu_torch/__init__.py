@@ -28,7 +28,9 @@ And the host side of serving around them:
 * runtime: FramePump (the native frame ring, page-locked batches) and
   Metrics;
 * parallel: make_mesh / shard_streams / make_sharded_step, the stream axis
-  split over a list of devices;
+  split over a list of devices, each shard's step a CUDA graph
+  (graph_step, the port's jax.jit, which HostScanner and tools/bench.py
+  use too);
 * tools/serve_demo.py: camera threads -> FramePump -> the split step ->
   Metrics.
 

@@ -1,3 +1,4 @@
+from .graphed import graph_step  # noqa: F401
 from .mesh import (  # noqa: F401
     Mesh, gather_streams, make_mesh, shard_streams, split_sizes)
 from .streams import (  # noqa: F401

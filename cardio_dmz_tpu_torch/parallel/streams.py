@@ -5,17 +5,20 @@ and the session state machine. Every function of the port is already
 stream-major, so the batched step is scanner_step over the stream axis;
 the JAX package reaches the same shape with vmap. make_sharded_step and
 make_sharded_camera_step split the stream axis over a list of devices
-(parallel/mesh.py).
+(parallel/mesh.py) and, as the JAX package jits its sharded step, run each
+shard's step as a CUDA graph (parallel/graphed.py).
 """
 
 import contextlib
 import copy
+import functools
 
 import torch
 
 from ..constants import ORIENTATION_LANDSCAPE_RIGHT
 from ..session.state import (
     camera_scanner_step, scan_frames, scanner_reset, scanner_step)
+from .graphed import graph_step
 from .mesh import data_devices, gather_streams, shard_streams
 
 
@@ -83,9 +86,13 @@ def replicate_params(params, devices):
 
 def _sharded(params, mesh, sizes, step_one):
     """(step, place, init) of step_one(params, state, *inputs) with the
-    stream axis split over `mesh`; see make_sharded_step."""
+    stream axis split over `mesh`, each shard's step graphed on the
+    shard's device; see make_sharded_step. step.shard_steps: the
+    GraphedSteps, one a shard."""
     devices = data_devices(mesh)
     copies = replicate_params(params, devices)
+    shard_steps = [graph_step(functools.partial(step_one, copies[device]),
+                              device) for device in devices]
 
     def place(x):
         return shard_streams(devices, x, sizes)
@@ -97,12 +104,13 @@ def _sharded(params, mesh, sizes, step_one):
         new_states, outputs = [], []
         for k, (device, state) in enumerate(zip(devices, states)):
             with device_scope(device):
-                state, out = step_one(copies[device], state,
-                                      *(shards[k] for shards in inputs))
+                state, out = shard_steps[k](
+                    state, *(shards[k] for shards in inputs))
             new_states.append(state)
             outputs.append(out)
         return new_states, gather_streams(outputs, devices[0])
 
+    step.shard_steps = shard_steps
     return step, place, init
 
 
@@ -119,9 +127,11 @@ def make_sharded_step(params, mesh, scan_expiry=False, sizes=None):
       ScannerResult)): the states stay sharded, the results come back
       stream-major on the first device.
 
-    The shards are stepped one after another from the calling thread; on
-    distinct CUDA devices their kernels overlap, since a launch does not
-    wait for the device."""
+    Each shard's step is a CUDA graph on the shard's device
+    (graphed.graph_step, the port's jax.jit), captured at its first call
+    with a new shape and replayed after. The replays go out one after
+    another from the calling thread; on distinct CUDA devices they
+    overlap, since a replay does not wait for the device."""
     def step_one(shard_params, state, frames):
         return batched_scanner_step(shard_params, state, frames, scan_expiry)
 
@@ -132,8 +142,9 @@ def make_sharded_camera_step(params, mesh, scan_expiry=False, sizes=None):
     """batched_camera_step split over `mesh` as make_sharded_step splits
     the scanner step: a full camera step on each shard (the JAX package,
     too, has no sharded form of the camera step of its own: its callers
-    jit the camera step over stream-sharded inputs). Returns (step, place,
-    init); step(states, y, cb, cr), each a list of shards -> (states,
+    jit the camera step over stream-sharded inputs), each shard's step a
+    CUDA graph. Returns (step, place, init); step(states, y, cb, cr), each
+    a list of shards -> (states,
     (found, FrameResult, ScannerResult)) with the outputs stream-major on
     the first device."""
     def step_one(shard_params, state, y, cb, cr):

@@ -596,6 +596,13 @@ def best_expiry_seg_device(slash_mlp, y_img, vseg_y, enabled) -> ExpiryWindows:
 _DIGIT_CHARS = (0, 1, 3, 4)     # MM/YY without the slash
 
 
+@functools.lru_cache(maxsize=None)
+def _digit_chars(device):
+    """_DIGIT_CHARS as an index tensor on `device`, made once: a step makes
+    no tensor from host data, which a CUDA graph could not capture."""
+    return torch.tensor(_DIGIT_CHARS, device=device)
+
+
 def categorize_windows(expiry_conv, y_img, windows: ExpiryWindows):
     """Per window, classify chars 0, 1, 3, 4 (expiry_categorize.cpp:
     149-252): 16x11 luma crop -> cross morph gradient -> equalize ->
@@ -605,7 +612,7 @@ def categorize_windows(expiry_conv, y_img, windows: ExpiryWindows):
     Invalid windows read whatever rows their clipped positions give, inside
     the card's lower 136 rows like the JAX package's, and are zeroed at the
     end."""
-    digit_idx = torch.tensor(_DIGIT_CHARS, device=y_img.device)
+    digit_idx = _digit_chars(y_img.device)
     band_tops = (windows.top - 2).clamp(0, CARD_HEIGHT - EXPANDED_H)
     bt_rel = (band_tops - _SCHARR_BASE).clamp(0, _BAND_ROWS - EXPANDED_H)
     ctops = windows.char_tops[..., digit_idx]             # (S, W, 4)
@@ -735,7 +742,7 @@ def extract_expiry(state: ExpiryState, best_month, best_year,
     stable = (stability >= EXPIRY_MIN_STABILITY) & (row_sum > 0)
 
     trusted = state.active & (state.total_seen >= MIN_SEEN)
-    all_stable = stable[..., list(_DIGIT_CHARS)].all(dim=-1)
+    all_stable = stable[..., _digit_chars(stable.device)].all(dim=-1)
 
     month = digits[..., 0] * 10 + digits[..., 1]
     year = digits[..., 3] * 10 + digits[..., 4]

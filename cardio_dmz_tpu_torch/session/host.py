@@ -9,9 +9,12 @@ implementation (scan/expiry_seg_host.py, scan/expiry_categorize_host.py),
 whose model calls run on that device too. The batched in-graph expiry read
 (scan/expiry_device.py) is what multi-stream serving uses.
 
-Each frame reads a few scalars back from the device (the completion flag,
-the vseg row and score): that is the shape of this API, one camera and one
-caller that wants each frame's answer before the next.
+The PAN step is graphed (parallel/graphed.graph_step), as the JAX
+HostScanner jits it: captured at the first frame, replayed at every frame
+after, the frame copied into the graph's static input. Each frame reads a
+few scalars back from the device (the completion flag, the vseg row and
+score): that is the shape of this API, one camera and one caller that
+wants each frame's answer before the next.
 """
 
 import time
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from ..constants import CARD_HEIGHT, MIN_VSEG_SCORE, SMALL_CHARACTER_HEIGHT
+from ..parallel.graphed import graph_step
 from ..scan.expiry_categorize_host import expiry_extract
 from ..scan.expiry_seg_host import best_expiry_seg
 from .state import (
@@ -56,6 +60,9 @@ class HostScanner:
         self.allow_past_dates = allow_past_dates
         self.now = tuple(now or time.localtime()[:2])  # (year, month)
         self.reset()
+        self._step = graph_step(
+            lambda state, y: scanner_step(params, state, y, scan_expiry=False),
+            self.device)
 
     def reset(self):
         self.state = scanner_reset(self.now, 1, self.device)
@@ -69,9 +76,8 @@ class HostScanner:
         ScannerResult), the frame's fields without a stream axis."""
         y = np.ascontiguousarray(y, np.uint8)
         pre_complete = bool(self.state.number_complete[0])
-        self.state, (frame, _result) = scanner_step(
-            self.params, self.state,
-            torch.from_numpy(y).to(self.device)[None], scan_expiry=False)
+        self.state, (frame, _result) = self._step(
+            self.state, torch.from_numpy(y)[None])
         frame = _one_stream(frame)
 
         # scan.cpp:57 drops !usable frames, where `usable` is computed with

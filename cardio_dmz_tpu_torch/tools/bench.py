@@ -11,7 +11,9 @@ and metric names:
     python -m cardio_dmz_tpu_torch.tools.bench [--camera] [--no-expiry]
                                                [--latency] [--smoke]
 
-runs on the CUDA device; --device cpu runs on the CPU. Time is host
+runs on the CUDA device; --device cpu runs on the CPU. The step is graphed
+(parallel/graphed.graph_step: captured once, replayed every step), as the
+JAX bench jits its step; a `#` line on stderr says so. Time is host
 clock. A throughput shape times the steps together, ending in
 torch.cuda.synchronize(); a latency shape (--latency, one stream) times
 each step alone, from its launch to a synchronize after it, and reports
@@ -86,7 +88,9 @@ def make_inputs(args):
 
 def make_step(params, camera, expiry):
     """step(states, *inputs) -> (states, complete): one batched scanner
-    step, or with camera one batched camera step."""
+    step, or with camera one batched camera step, graphed on the device
+    the params live on."""
+    from ..parallel.graphed import graph_step
     from ..parallel.streams import batched_camera_step, batched_scanner_step
 
     if camera:
@@ -99,7 +103,7 @@ def make_step(params, camera, expiry):
             states, (_, results) = batched_scanner_step(
                 params, states, frames, scan_expiry=expiry)
             return states, results.complete
-    return step
+    return graph_step(step, next(params["vseg_mlp"].buffers()).device)
 
 
 def synchronize(device):
@@ -183,6 +187,11 @@ def main(argv=None):
     print(f"# device={device_name(device)} streams={args.streams} "
           f"iters={args.iters} step={step_ms:.1f}ms expiry={args.expiry} "
           f"camera={args.camera}", file=sys.stderr)
+    print("# the step is graphed: " + (
+        "one CUDA graph, captured in the warm-up, replayed every step"
+        if device.type == "cuda" else
+        "its staging runs the step eagerly on the CPU, where no graph "
+        "exists"), file=sys.stderr)
     if args.latency:
         # the median step time of one stream == p50 frame->digits
         # latency; baseline = 1/22 fps = 45.5 ms

@@ -3,11 +3,14 @@ shares of the H100's peaks.
 
 Counterpart of the JAX package's tools/roofline.py, with its shapes,
 inputs (RandomState(0) noise cards, then noise previews) and record keys:
-for each shape one step is counted by tools/profiling.WorkCounter (the
-JAX tool reads XLA's cost analysis), the step is timed as the JAX tool
-times it (`--iters` steps with the states carried, host clock up to a
-synchronize), and one step is profiled (device time and the device's idle
-share). Per shape, one JSON line:
+for each shape one eager step is counted by tools/profiling.WorkCounter
+(the JAX tool reads XLA's cost analysis; a counter sees ops as they are
+dispatched, and a graph's replay dispatches none), the graphed step
+(parallel/graphed.graph_step, the port's jax.jit) is timed as the JAX tool
+times its jitted one (`--iters` steps with the states carried, host clock
+up to a synchronize, after one call that captures the graph), and one
+graphed step is profiled (device time and the device's idle share). Per
+shape, one JSON line:
 
 * gflops_per_step, mflops_per_frame; hbm_mb_per_step (bytes executed:
   every op's inputs and outputs, an upper bound on traffic, as XLA's
@@ -103,13 +106,16 @@ def analyze(name, step, params, states, inputs, streams, iters, device):
         "peak": PEAK_NOTE, "device": device_label(device),
     }
     if torch.device(device).type == "cuda":
+        from ..parallel.graphed import graph_step
+        graphed = graph_step(step, device)
+        states, _ = graphed(states, *inputs)             # captures the graph
         synchronize(device)
         t0 = time.perf_counter()
         for _ in range(iters):
-            states, _ = step(states, *inputs)
+            states, _ = graphed(states, *inputs)
         synchronize(device)
         sec = (time.perf_counter() - t0) / iters
-        prof = profile_step(lambda: step(states, *inputs))
+        prof = profile_step(lambda: graphed(states, *inputs))
         t_flops = flops / PEAK_FLOPS["f32"]
         t_mem = min_bytes / HBM_BYTES_PER_S
         rec.update({

@@ -4,7 +4,10 @@ in-graph expiry read (the full steps), the host side of serving around
 them (the single-stream HostScanner, checkpoints, the step split over a
 device list, the serving loop behind the frame pump), training, the
 entry hooks (entry, dryrun_multichip), the tools, the profilers, the
-compiled reference's recorded answers and the weights extraction tool.
+compiled reference's recorded answers, the weights extraction tool, and
+the serving steps captured as CUDA graphs (parallel/graphed.graph_step,
+the port's jax.jit), which make_sharded_step, make_sharded_camera_step,
+HostScanner and tools/bench.py run.
 
     python3 chip_smoke.py            (from the repo root, on a CUDA machine)
 
@@ -92,9 +95,10 @@ without printing its last line:
             tests/torch_fixture.py); both dated cards read PAN and date, the
             undated one completes only through the grace rule; the host
             oracle's expiry groups equal the JAX package's, and equal the
-            port's device path on the card; digit prep launched once a
-            frame at one stream; ms a frame, the PAN step and the host
-            expiry apart
+            port's device path on the card; the PAN step one CUDA graph,
+            digit prep launched once a frame at one stream (and
+            WARMUP_CALLS times more before the capture); ms a frame, the
+            eager PAN step and the host expiry apart
 15. camera metadata and portrait
             the fixture's oriented camera runs (the cards on the portrait
             and on the landscape-left guide rect, non-zero iso / shutter /
@@ -112,18 +116,22 @@ without printing its last line:
             make_sharded_step over [cuda:0] and over [cuda:0, cuda:0] as
             129 + 127 streams, PAN-only and full, and
             make_sharded_camera_step (the full camera step a shard) over
-            [cuda:0, cuda:0], against the unsplit step: over [cuda:0]
-            bit for bit; over the uneven two, every integer and bool leaf equal and
-            the float leaves within 1e-5 (the GEMM library picks its
+            [cuda:0, cuda:0], each shard's step a CUDA graph, against the
+            eager unsplit step: over [cuda:0] bit for bit; over the
+            uneven two, every integer and bool leaf equal and the float
+            leaves within 1e-5 (the GEMM library picks its
             kernel, and with it its summation order, by the call's row
-            count); each kernel's launches are the shards times the
-            unsplit count; step ms beside the unsplit step's
+            count); each kernel's launches are the shards times its
+            count a step times the steps and the WARMUP_CALLS eager steps
+            before each capture (replays counted: read_launches); step ms
+            beside the unsplit step's
 18. serving loop
             tools/serve_demo.py on the card: 16 camera threads at 30
             frames/s -> FramePump (page-locked batches) -> the split step
             -> Metrics, for 3 s: every stream's accepted read is its
-            fixture PAN, fresh + stale frames = steps x streams; the
-            metrics text is printed
+            fixture PAN, fresh + stale frames = steps x streams, digit
+            prep launched once a step and WARMUP_CALLS times before the
+            warm-up step's capture; the metrics text is printed
 19. train   for each of the four architectures of tools/train_models.py,
             against data/train_session.npz (written from the JAX package by
             tests/torch_fixture.py): the port's generators, with `import
@@ -144,15 +152,17 @@ without printing its last line:
             y_offset exact, scores within 1e-5; the fixture); then
             dryrun_multichip(4) over four copies of cuda:0 (a 2 x 2 mesh,
             so the column-parallel hidden layer runs): a finite training
-            loss, the serving and the camera step a shard; the three
-            kernels' launches in it, exactly digit prep twice and the warp
-            and persp QR once a data group
+            loss, the serving and the camera step a shard, each a CUDA
+            graph; the three kernels' launches in it, exactly digit prep
+            twice and the warp and persp QR once a data group for each
+            replay and each of the WARMUP_CALLS eager steps before it
 21. tools   tools/bench_matrix.py on the card, all five shapes (full, pan,
             camera, latency, camera_latency), each bench in a process of
             its own: every line has its shape's metric name and unit and
-            a value above 0; one bench step of each shape in this process,
-            with each kernel's launches in it (digit prep once a step on
-            the rectified shapes, all three once on the camera shapes),
+            a value above 0; one bench step (a graph replay) of each shape
+            in this process, with each kernel's launches in it (digit
+            prep once a step on the rectified shapes, all three once on
+            the camera shapes),
             its host-clock ms, device ms and operations and the device's
             idle share;
             the detector finds all 16 of the camera shape's rendered
@@ -213,6 +223,20 @@ without printing its last line:
             through scan_card_image with the extracted weights give the
             scores, usable flags and vseg offsets of the committed
             weights' run bit for bit, digit prep launched
+25. graphs  each serving shape (pan, full, camera, camera_full: the inputs
+            of phases 6, 12, 10 and 13 at 256 streams) through its eager
+            step and through its CUDA graph side by side, 3 warm-up and 20
+            steps from fresh states: every leaf of the states and results
+            bit for bit; each step's ms eager and graphed (median of 20,
+            in turns), device ms and idle share (torch.profiler), host
+            launches a step (the runtime's launch, copy and graph-launch
+            calls), the capture's seconds and the graph pool's MiB; each
+            kernel once in the eager step, once in one replay (the
+            profiler's count by kernel symbol) and once among the
+            launches the capture recorded; HostScanner.add_frame ms
+            graphed and eager, and two shards on one card (129 + 127
+            streams) graphed and eager, PAN-only and full, beside the
+            unsplit eager step
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times from
 kernel_ms: many calls captured in one CUDA graph and replayed, so the
@@ -220,7 +244,10 @@ wrappers' Python is not inside them. Stage splits and step times do include
 the host's launches (event_ms, host clock).
 
 Each serving phase sets every kernel's launch count to 0 just before its
-run and reads them just after, and prints them on a line of its own. The
+run and reads them just after, and prints them on a line of its own. A
+kernel's launches are those that ran on the card: its wrapper's count, less
+the launches a graph capture only recorded, plus those of the replays
+(parallel/graphed.launches). The
 line before the last is a JSON object with, for each kernel, its launches
 on the camera serving path (and on the PAN-only one), its largest
 difference from the plain version, its time, the plain version's and one
@@ -229,7 +256,9 @@ larger of the bytes it must move over the card's memory rate and its
 operations over the card's peak rate; its launches in phase 20's entry()
 and dry run; its launches in one bench step of each shape (phase 21);
 its launches in one roofline step of each shape (phase 22); its
-launches in phase 23; and its launches in phase 24. Before
+launches in phase 23; its launches in phase 24; and its launches in one
+replay of each shape's graph, as the profiler counts them (phase 25).
+Before
 it come a line with every phase's seconds and the total, and
 the card's name and power limit. The last line is {"ok": true,
 "device": {...}}.
@@ -430,12 +459,22 @@ def device_phase():
 
 
 def reset_launches(modules):
+    """Every kernel's launch count to 0: each wrapper's LAUNCHES and the
+    graphs' tallies (parallel/graphed.CAPTURED, REPLAYED)."""
+    from cardio_dmz_tpu_torch.parallel import graphed
     for module in modules.values():
         module.LAUNCHES = 0
+    graphed.reset_launches()
 
 
 def read_launches(modules):
-    return {name: module.LAUNCHES for name, module in modules.items()}
+    """Each kernel's launches that ran on the card since reset_launches:
+    its wrapper's count (every eager launch, and every launch a graph
+    capture recorded), less the captures' recorded launches, plus the
+    launches of the graphs' replays (parallel/graphed.launches)."""
+    from cardio_dmz_tpu_torch.parallel import graphed
+    counted = graphed.launches()
+    return {name: counted[name] for name in modules}
 
 
 def build_phase(modules, ingest):
@@ -1467,10 +1506,14 @@ def host_scanner_phase(port, kernels, params, expiry, host, card, dev):
                         f"HostScanner stream {s} frame {t}: {key} = {value}; "
                         f"the JAX package's {host[f'host_{key}'][s, t]}")
         launches = read_launches(kernels)
-        if launches != {"digit_prep": n_frames, "warp_gather": 0,
+        # the first frame of the first session captures the PAN step's
+        # graph after WARMUP_CALLS eager steps; every frame replays it
+        want = n_frames + (port.parallel.graphed.WARMUP_CALLS if s == 0
+                           else 0)
+        if launches != {"digit_prep": want, "warp_gather": 0,
                         "persp_qr": 0}:
-            raise AssertionError(f"want digit prep launched once a frame at "
-                                 f"one stream; got {launches}")
+            raise AssertionError(f"want digit prep launched {want} times "
+                                 f"at one stream; got {launches}")
         reads.append((scanner.card_number, result.complete,
                       f"{result.expiry_month:02d}/{result.expiry_year}"))
     pans = fixture_pans(expiry)
@@ -1478,6 +1521,10 @@ def host_scanner_phase(port, kernels, params, expiry, host, card, dev):
     if reads != [(pans[0], True, dates[0]), (pans[1], True, dates[1]),
                  (pans[2], False, "00/0")]:
         raise AssertionError(f"HostScanner read {reads}")
+    graphs = list(scanner._step.entries.values())
+    if len(graphs) != 1 or (dev.type == "cuda" and graphs[0].graph is None):
+        raise AssertionError(f"HostScanner's PAN step: {len(graphs)} graph "
+                             f"keys, want one CUDA graph for one shape")
     # the undated card is the last session: it completes through grace only
     grace = port.session.state.EXPIRY_GRACE_FRAMES
     for since, want in ((grace, False), (grace + 1, True)):
@@ -1739,6 +1786,19 @@ def checkpoint_phase(port, kernels, params, expiry, host, dates, dev):
           f"{after} frames to the recorded reads and analytics ring")
 
 
+def graphed_launches(unsplit, n_calls, n_shards):
+    """A graphed split's launches against an eager unsplit run of n_calls
+    steps: each shard's step is a graph, whose capture runs WARMUP_CALLS
+    eager steps first, so every kernel launches n_shards x (n_calls +
+    WARMUP_CALLS) times its count a step."""
+    from cardio_dmz_tpu_torch.parallel.graphed import WARMUP_CALLS
+    if any(v % n_calls for v in unsplit.values()):
+        raise AssertionError(f"unsplit launches {unsplit} over {n_calls} "
+                             f"steps")
+    return {k: v // n_calls * (n_calls + WARMUP_CALLS) * n_shards
+            for k, v in unsplit.items()}
+
+
 def split_step_phase(port, kernels, params, expiry, dates, card, dev):
     phase("17 split step")
     from cardio_dmz_tpu_torch.parallel.mesh import gather_streams
@@ -1779,7 +1839,7 @@ def split_step_phase(port, kernels, params, expiry, dates, card, dev):
                                     float_atol))
         torch.cuda.synchronize()
         launches = read_launches(kernels)
-        want = {k: v * len(devices) for k, v in unsplit.items()}
+        want = graphed_launches(unsplit, len(steps), len(devices))
         if launches != want:
             raise AssertionError(f"{name} {label}: launches {launches}; "
                                  f"want {want}")
@@ -1833,7 +1893,7 @@ def split_step_phase(port, kernels, params, expiry, dates, card, dev):
                 res, ref[t][1], f"camera step {t} results", SCORE_ATOL))
     torch.cuda.synchronize()
     launches = read_launches(kernels)
-    if launches != {k: 2 * v for k, v in unsplit.items()} or not all(
+    if launches != graphed_launches(unsplit, n_camera, 2) or not all(
             unsplit.values()):
         raise AssertionError(f"camera step a shard: launches {launches}; "
                              f"unsplit {unsplit}")
@@ -1861,8 +1921,12 @@ def serving_loop_phase(port, kernels, card, dev):
     if (counts["counter_frames_fresh"] + counts.get("counter_frames_stale", 0)
             != steps * n_streams or counts.get("counter_reads_mismatched")):
         raise AssertionError(f"serving loop counters: {counts}")
-    if launches["digit_prep"] != steps + 1:        # + the warm-up step
-        raise AssertionError(f"{steps} serving steps launched {launches}")
+    # + the warm-up step, which captures the graph after WARMUP_CALLS
+    # eager steps
+    want = steps + 1 + port.parallel.graphed.WARMUP_CALLS
+    if launches["digit_prep"] != want:
+        raise AssertionError(f"{steps} serving steps launched {launches}; "
+                             f"want digit prep {want}")
     print(f"serving loop on {dev}: {steps} steps in 3 s at {n_streams} "
           f"streams of 30 frames/s, {counts['counter_frames_fresh']} fresh "
           f"and {counts.get('counter_frames_stale', 0)} stale frames, "
@@ -2104,10 +2168,12 @@ def entry_phase(port, kernels, card, dev):
     seconds = time.perf_counter() - t0
     dryrun = read_launches(kernels)
     # a data group's shard: one serving step (digit prep) and one full
-    # camera step (all three kernels once)
+    # camera step (all three kernels once), each a graph captured after
+    # WARMUP_CALLS eager steps and replayed once
     groups = summary["mesh"]["data"]
-    want = {"digit_prep": 2 * groups, "warp_gather": groups,
-            "persp_qr": groups}
+    calls = groups * (1 + port.parallel.graphed.WARMUP_CALLS)
+    want = {"digit_prep": 2 * calls, "warp_gather": calls,
+            "persp_qr": calls}
     if dryrun != want:
         raise AssertionError(f"the dry run launched {dryrun}; its "
                              f"{groups} data groups should launch {want}")
@@ -2819,6 +2885,264 @@ def weights_phase(port, kernels, params, fixture, dev):
     return {"launches": launches}
 
 
+# --- 25 graphs --------------------------------------------------------------
+
+GRAPH_SHAPES = ("pan", "full", "camera", "camera_full")
+# each kernel's symbol in csrc/, as the profiler names its launches
+KERNEL_SYMBOLS = {"digit_prep": "digit_prep_kernel",
+                  "warp_gather": "warp_exact_kernel",
+                  "persp_qr": "persp_qr_kernel"}
+# the runtime and driver calls that put work on a stream: a step's host
+# launches
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+                "cudaGraphLaunch")
+
+
+def graph_shape(port, params, shape, fixtures, dates, dev):
+    """(step(states, *inputs), [inputs of each frame], now) of a serving
+    shape at N_STREAMS streams on the cards of phases 6 (pan), 12 (full),
+    10 (camera) and 13 (camera_full)."""
+    smoke, camera, expiry = fixtures
+    scan_expiry = shape in ("full", "camera_full")
+    if shape == "pan":
+        streams = np.arange(N_STREAMS) % smoke["frames"].shape[0]
+        inputs = [(torch.from_numpy(np.ascontiguousarray(
+            smoke["frames"][streams, t])).to(dev),)
+            for t in range(smoke["frames"].shape[1])]
+        now = smoke["now"]
+    elif shape == "full":
+        inputs = [(f,) for f in _full_steps(expiry, dates, dev)[1]]
+        now = expiry["now"]
+    elif shape == "camera":
+        streams = np.arange(N_STREAMS) % camera["y"].shape[0]
+        inputs = [tuple(torch.from_numpy(np.ascontiguousarray(
+            camera[k][streams, t])).to(dev) for k in ("y", "cb", "cr"))
+            for t in range(camera["y"].shape[1])]
+        now = camera["now"]
+    else:
+        streams = np.arange(N_STREAMS) % sum(d != "00/0" for d in dates)
+        inputs = [tuple(torch.from_numpy(p).to(dev) for p in paste_previews(
+            expiry["frames"][streams, t]))
+            for t in range(expiry["frames"].shape[1])]
+        now = expiry["now"]
+    if shape.startswith("camera"):
+        def step(states, y, cb, cr):
+            return port.batched_camera_step(params, states, y, cb, cr,
+                                            scan_expiry=scan_expiry)
+    else:
+        def step(states, frames):
+            return port.batched_scanner_step(params, states, frames,
+                                             scan_expiry=scan_expiry)
+    return step, inputs, tuple(now.tolist())
+
+
+def assert_bits(a, b, what):
+    """Every leaf of two trees: the same dtype, shape and bytes."""
+    from torch.utils._pytree import tree_flatten
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    if len(la) != len(lb):
+        raise AssertionError(f"{what}: {len(la)} leaves against {len(lb)}")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x.contiguous().reshape(-1).view(torch.uint8),
+                y.contiguous().reshape(-1).view(torch.uint8)):
+            raise AssertionError(f"{what}: leaf {i} ({x.dtype} "
+                                 f"{tuple(x.shape)}) differs")
+    return len(la)
+
+
+def host_launches(fn):
+    """The calls of LAUNCH_CALLS one call of fn makes, counted by
+    torch.profiler on the host (after one call to warm up), and each
+    kernel's launches on the device in it ({name: n} by KERNEL_SYMBOLS;
+    up to three tries, as profile_step, for a trace without device
+    work)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        if any(e.self_device_time_total > 0 for e in rows):
+            break
+    else:
+        raise RuntimeError("torch.profiler saw no device work")
+    calls = sum(e.count for e in rows if e.key in LAUNCH_CALLS)
+    kernels = {name: sum(e.count for e in rows if symbol in e.key
+                         and e.self_device_time_total > 0)
+               for name, symbol in KERNEL_SYMBOLS.items()}
+    return calls, kernels
+
+
+def in_turns(a, b, reps=10):
+    """host_ms of fn a and fn b in turns (a, b, b, a), `reps` calls each
+    time: the median ms of each over its 2 x reps calls."""
+    times = {"a": [], "b": []}
+    for key in ("a", "b", "b", "a"):
+        fn = a if key == "a" else b
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[key].append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times["a"]), statistics.median(times["b"])
+
+
+def check_replay_kernels(shape, eager, replay, recorded):
+    """Each kernel once a step: in the eager step and in one replay (the
+    profiler's counts), and among the launches the capture recorded."""
+    camera = shape.startswith("camera")
+    want = {"digit_prep": 1, "warp_gather": int(camera),
+            "persp_qr": int(camera)}
+    if not (replay == eager == want
+            and {k: recorded.get(k, 0) for k in want} == want):
+        raise AssertionError(
+            f"{shape}: kernels a step eager {eager}, in one replay {replay}, "
+            f"recorded at capture {recorded}; want {want}")
+
+
+def graph_shape_run(port, params, shape, fixtures, dates, dev):
+    """One shape's graph against its eager step: WARMUP + STEPS steps side
+    by side from fresh states, bit for bit; then both timed in turns,
+    profiled, and the graph's capture seconds, pool and launches."""
+    import gc
+    from cardio_dmz_tpu_torch.parallel import graphed
+    step, inputs, now = graph_shape(port, params, shape, fixtures, dates,
+                                    dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool_before = graphed.pool_bytes(dev)
+    graph = graphed.graph_step(step, dev)
+    eager_states = graph_states = port.init_stream_states(N_STREAMS, dev,
+                                                          now)
+    leaves = 0
+    for i in range(WARMUP + STEPS):
+        x = inputs[i % len(inputs)]
+        eager_states, eager_out = step(eager_states, *x)
+        graph_states, graph_out = graph(graph_states, *x)
+        leaves = assert_bits((eager_states, eager_out),
+                             (graph_states, graph_out),
+                             f"{shape} step {i}")
+    entry, = graph.entries.values()
+    pool_mib = graphed.pool_bytes(dev) / 2**20
+    x = inputs[0]
+    eager_ms, graph_ms = in_turns(lambda: step(eager_states, *x),
+                                  lambda: graph(graph_states, *x))
+    eager_prof = profile_step(lambda: step(eager_states, *x))
+    graph_prof = profile_step(lambda: graph(graph_states, *x))
+    eager_calls, eager_kernels = host_launches(lambda: step(eager_states,
+                                                            *x))
+    graph_calls, graph_kernels = host_launches(lambda: graph(graph_states,
+                                                             *x))
+    check_replay_kernels(shape, eager_kernels, graph_kernels,
+                         entry.launches)
+    return {"leaves": leaves, "eager_ms": eager_ms, "graph_ms": graph_ms,
+            "eager_device_ms": eager_prof["device_ms"],
+            "graph_device_ms": graph_prof["device_ms"],
+            "eager_idle": eager_prof["idle_share"],
+            "graph_idle": graph_prof["idle_share"],
+            "eager_host_launches": eager_calls,
+            "graph_host_launches": graph_calls,
+            "capture_s": entry.capture_s, "pool_mib": pool_mib,
+            "pool_mib_before": pool_before / 2**20,
+            "replay_launches": graph_kernels}
+
+
+def add_frame_ms(port, params, frames, now, dev):
+    """Median ms of HostScanner.add_frame over the frames of a session,
+    graphed (as it ships) and with the eager PAN step put in the graph's
+    place, in turns (graphed, eager, eager, graphed) after one session of
+    each to warm up."""
+    graphed_scanner = port.HostScanner(params, now=now)
+    eager_scanner = port.HostScanner(params, now=now)
+    eager_scanner._step = lambda state, y: port.session.scanner_step(
+        params, state, y.to(dev), scan_expiry=False)
+    times = {"graphed": [], "eager": []}
+    for name, scanner in (("graphed", graphed_scanner),
+                          ("eager", eager_scanner)):
+        for y in frames:
+            scanner.add_frame(y)
+    for name in ("graphed", "eager", "eager", "graphed"):
+        scanner = graphed_scanner if name == "graphed" else eager_scanner
+        scanner.reset()
+        for y in frames:
+            t0 = time.perf_counter()
+            scanner.add_frame(y)
+            times[name].append(1e3 * (time.perf_counter() - t0))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def two_shards_ms(port, params, expiry, dates, scan_expiry, dev):
+    """Host ms of a step split as 129 + 127 streams over [cuda:0, cuda:0]:
+    the graphed make_sharded_step against the same shards stepped eagerly
+    one after another, in turns; the unsplit eager step beside them."""
+    now = tuple(expiry["now"].tolist())
+    _, steps = _full_steps(expiry, dates, dev)
+    sizes = [N_STREAMS // 2 + 1, N_STREAMS - N_STREAMS // 2 - 1]
+    step, place, init = port.make_sharded_step(
+        params, [dev, dev], scan_expiry=scan_expiry, sizes=sizes)
+    states, shards = init(N_STREAMS, now), place(steps[0])
+    states, _ = step(states, shards)
+
+    def eager():
+        outs = [port.batched_scanner_step(params, st, fr, scan_expiry)
+                for st, fr in zip(states, shards)]
+        return port.parallel.gather_streams([o[1] for o in outs], dev)
+
+    eager_ms, graph_ms = in_turns(eager, lambda: step(states, shards))
+    unsplit = port.init_stream_states(N_STREAMS, dev, now)
+    unsplit_ms = host_ms(lambda: port.batched_scanner_step(
+        params, unsplit, steps[0], scan_expiry), 10)
+    return {"eager_ms": eager_ms, "graph_ms": graph_ms,
+            "unsplit_eager_ms": unsplit_ms}
+
+
+def graphs_phase(port, params, fixtures, dates, card, dev):
+    """Phase 25: each serving shape's graph (parallel/graphed.graph_step)
+    against its eager step, bit for bit, with the two steps' times; the
+    graphed HostScanner and split step against their eager forms."""
+    phase("25 graphs")
+    t0 = time.perf_counter()
+    from cardio_dmz_tpu_torch.parallel.graphed import WARMUP_CALLS
+    runs = {}
+    for shape in GRAPH_SHAPES:
+        runs[shape] = run = graph_shape_run(port, params, shape, fixtures,
+                                            dates, dev)
+        print(f"graph {shape} at {N_STREAMS} streams: {WARMUP + STEPS} "
+              f"steps bit for bit with the eager step ({run['leaves']} "
+              f"leaves of states and results each); step ms eager "
+              f"{run['eager_ms']:.3f}, graphed {run['graph_ms']:.3f} (median "
+              f"of 20, in turns); device ms {run['eager_device_ms']}, "
+              f"{run['graph_device_ms']}; idle share {run['eager_idle']}, "
+              f"{run['graph_idle']}; host launches a step "
+              f"{run['eager_host_launches']}, {run['graph_host_launches']}; "
+              f"capture {run['capture_s']:.3f} s with {WARMUP_CALLS} eager "
+              f"warm-up calls; pool {run['pool_mib']:.1f} MiB (before "
+              f"{run['pool_mib_before']:.1f}); kernels in one replay "
+              f"{run['replay_launches']}; card {card}")
+    expiry = fixtures[2]
+    frames = expiry["frames"][0]
+    add_frame = add_frame_ms(port, params, frames,
+                             tuple(expiry["now"].tolist()), dev)
+    print(f"HostScanner.add_frame over {len(frames)} frames, median ms: "
+          f"graphed {add_frame['graphed']:.3f}, eager {add_frame['eager']:.3f}"
+          f"; card {card}")
+    shards = {name: two_shards_ms(port, params, expiry, dates, scan_expiry,
+                                  dev)
+              for name, scan_expiry in (("pan", False), ("full", True))}
+    print(f"two shards on {dev} ({N_STREAMS // 2 + 1} + "
+          f"{N_STREAMS - N_STREAMS // 2 - 1} streams), host ms: "
+          + json.dumps(shards) + f"; card {card}")
+    print(f"graphs: {time.perf_counter() - t0:.3f} s")
+    return {"runs": runs, "add_frame": add_frame, "shards": shards,
+            "launches": {shape: run["replay_launches"]
+                         for shape, run in runs.items()}}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2866,6 +3190,8 @@ def main():
     profilers = profilers_phase(port, kernels, params, expiry, card, dev)
     reference = reference_phase(port, kernels, params, dev)
     weights = weights_phase(port, kernels, params, fixture, dev)
+    graphs = graphs_phase(port, params, (fixture, camera, expiry), dates,
+                          card, dev)
 
     seconds, total = phase_seconds()
     print(f"phase seconds {json.dumps(seconds)}; total {total:.3f} s")
@@ -2888,6 +3214,8 @@ def main():
                                    profilers["launches"].items()},
         "launches_reference_phase": reference["launches"][name],
         "launches_weights_phase": weights["launches"][name],
+        "launches_graph_replay": {shape: n[name] for shape, n in
+                                  graphs["launches"].items()},
         **measured[name]} for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 """The port on an NVIDIA card: each CUDA kernel (digit prep, persp QR, the
-exact warp) against its plain version, and the scan, camera and expiry
-paths on the card against the same paths on the CPU.
+exact warp) against its plain version, the scan, camera and expiry paths
+on the card against the same paths on the CPU, and each serving step
+replayed as a CUDA graph (parallel/graphed.graph_step) against the eager
+step, bit for bit.
 
 These tests skip without a card. They import neither jax nor the JAX
 package, so they also run where only PyTorch is installed:
@@ -22,12 +24,14 @@ from cardio_dmz_tpu_torch.api import preprocess_frame
 from cardio_dmz_tpu_torch.models import load_all_params
 from cardio_dmz_tpu_torch.ops.cuda import digit_prep, persp_qr, warp_gather
 from cardio_dmz_tpu_torch.parallel import (
-    batched_camera_step, init_stream_states)
+    batched_camera_step, batched_scanner_step, init_stream_states)
+from cardio_dmz_tpu_torch.parallel.graphed import (
+    WARMUP_CALLS, CaptureError, graph_step)
 from cardio_dmz_tpu_torch.scan import (
     best_n_hseg, best_n_vseg, scan_card_image)
 from cardio_dmz_tpu_torch.scan.frame import pan_strip
 from cardio_dmz_tpu_torch.session import scan_frames
-from chip_smoke import dest_rects
+from chip_smoke import dest_rects, paste_previews
 from torch_parity import cuda_device  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -307,3 +311,95 @@ def test_generators_without_pil(cuda_device, model):  # noqa: F811
     from chip_smoke import check_train_batches
     from cardio_dmz_tpu_torch.tools.train_models import _spec
     check_train_batches(_spec(model, cuda_device)[3], _train_run(model))
+
+
+def _tile(a, n_streams):
+    """The first axis (streams) of a fixture array tiled to n_streams."""
+    return np.ascontiguousarray(
+        np.tile(a, (-(-n_streams // len(a)),) + (1,) * (a.ndim - 1))
+        [:n_streams])
+
+
+def _graph_inputs(shape, n_streams, n_steps, device):
+    """(step(params, states, *inputs), [inputs of each step], now) of a
+    serving shape on the fixtures' cards: pan on smoke_session.npz, full
+    on expiry_session.npz, camera on camera_session.npz's previews,
+    camera_full on the expiry cards pasted on previews."""
+    name = {"pan": "smoke", "full": "expiry", "camera": "camera",
+            "camera_full": "expiry"}[shape]
+    with np.load(os.path.join(DATA, f"{name}_session.npz")) as f:
+        now = tuple(f["now"].tolist())
+        if shape == "camera":
+            planes = [[_tile(f[k][:, t], n_streams) for k in ("y", "cb",
+                                                              "cr")]
+                      for t in range(n_steps)]
+        else:
+            cards = [_tile(f["frames"][:, t], n_streams)
+                     for t in range(n_steps)]
+            planes = [paste_previews(c) for c in cards] \
+                if shape == "camera_full" else [[c] for c in cards]
+    inputs = [[torch.from_numpy(np.ascontiguousarray(p)).to(device)
+               for p in step_planes] for step_planes in planes]
+    expiry = shape in ("full", "camera_full")
+    if shape.startswith("camera"):
+        def step(params, states, y, cb, cr):
+            return batched_camera_step(params, states, y, cb, cr,
+                                       scan_expiry=expiry)
+    else:
+        def step(params, states, frames):
+            return batched_scanner_step(params, states, frames, expiry)
+    return step, inputs, now
+
+
+def _leaf_bits(tree):
+    from torch.utils._pytree import tree_flatten
+    return [t.contiguous().view(torch.uint8).cpu()
+            for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+
+@pytest.mark.parametrize("n_streams", [4, 32])
+@pytest.mark.parametrize("shape", ["pan", "full", "camera", "camera_full"])
+def test_graphed_step_equals_eager_step(cuda_device, shape,  # noqa: F811
+                                        n_streams):
+    """Three steps of the fixture cards through the eager step and through
+    its graph (captured at the first step, replayed at each): states and
+    results bit for bit, every leaf; the replays launch the kernels the
+    eager step launches, once a step each."""
+    params = load_all_params(cuda_device)
+    step, inputs, now = _graph_inputs(shape, n_streams, 3, cuda_device)
+    graphed = graph_step(lambda st, *x: step(params, st, *x), cuda_device)
+    eager_state = init_stream_states(n_streams, cuda_device, now)
+    graph_state = init_stream_states(n_streams, cuda_device, now)
+    for t, x in enumerate(inputs):
+        eager_state, eager_out = step(params, eager_state, *x)
+        graph_state, graph_out = graphed(graph_state, *x)
+        for i, (a, b) in enumerate(zip(_leaf_bits((eager_state, eager_out)),
+                                       _leaf_bits((graph_state, graph_out)))):
+            assert torch.equal(a, b), (shape, t, i)
+    entry, = graphed.entries.values()
+    camera = shape.startswith("camera")
+    assert entry.launches == {"digit_prep": 1, **(
+        {"warp_gather": 1, "persp_qr": 1} if camera else {})}
+
+
+def test_capture_of_a_host_sync_raises(cuda_device):  # noqa: F811
+    """A step that reads a value back (.item()) runs its warm-up calls,
+    then fails at capture: CaptureError names the line, no result comes
+    back and no eager call stands in. The device stays usable: another
+    step captures and replays after it."""
+    calls = []
+
+    def reads_back(x):
+        calls.append(1)
+        scale = x.sum().item()
+        return x * scale
+
+    step = graph_step(reads_back, cuda_device)
+    with pytest.raises(CaptureError, match="reads_back") as info:
+        step(torch.ones(4, device=cuda_device))
+    assert "test_torch_cuda.py" in str(info.value)
+    assert len(calls) == WARMUP_CALLS + 1 and step.entries == {}
+    doubled = graph_step(lambda x: x * 2, cuda_device)
+    out = doubled(torch.ones(4, device=cuda_device))
+    out = doubled(torch.full((4,), 3.0, device=cuda_device))
+    assert out.tolist() == [6.0] * 4

@@ -635,6 +635,29 @@ def jax_checkpoint_bytes(state):
 
 
 @functools.lru_cache(maxsize=None)
+def jax_sharded_run(fixture, scan_expiry, n_steps=4):
+    """The JAX package's make_sharded_step (jitted) on a one-CPU mesh over
+    the first n_steps frames of a fixture file (FIXTURE or
+    EXPIRY_FIXTURE), from fresh states at the fixture's `now`: one (state,
+    (frame, result)) per step, as numpy."""
+    from cardio_dmz_tpu.parallel.mesh import make_mesh
+    from cardio_dmz_tpu.parallel.streams import make_sharded_step
+    data = np.load(fixture)
+    frames, now = data["frames"], data["now"]
+    step, place, init = make_sharded_step(
+        load_all_params(), make_mesh(jax.devices()[:1]),
+        scan_expiry=scan_expiry)
+    state = init(frames.shape[0])
+    state = state._replace(now_year=jnp.full_like(state.now_year, now[0]),
+                           now_month=jnp.full_like(state.now_month, now[1]))
+    out = []
+    for t in range(n_steps):
+        state, res = step(state, place(frames[:, t]))
+        out.append(_np((state, res)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
 def jax_host_scanner():
     """One JAX HostScanner: its jitted PAN step compiles once. Callers set
     its attributes and reset() it."""
