@@ -55,8 +55,9 @@ def dryrun_multichip(n_devices, devices=None):
     """One step each, on tiny shapes, over a mesh of n_devices: training
     (one fit step of the PAN conv, the batch split over the data axis and,
     with n_devices even and >= 4, the hidden layer column-parallel over two
-    model ranks), serving (make_sharded_step) and the full camera step
-    (scan_expiry=True) on each data shard. devices: the mesh's devices (a
+    model ranks; one CUDA graph when the mesh names one card n times),
+    serving (make_sharded_step) and the full camera step
+    (scan_expiry=True) on each data shard, each shard's step a graph. devices: the mesh's devices (a
     device may repeat); None takes the first n_devices CUDA devices, or
     n_devices copies of cuda:0 when there is one card. Returns a summary
     dict; raises if a step's output is wrong."""

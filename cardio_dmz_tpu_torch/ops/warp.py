@@ -10,7 +10,7 @@ Counterpart of the JAX package's ops/warp.py, two of its methods:
   warp_coord_maps and then the gather, for CPU tensors). Bit for bit the
   reference chain.
 * "gather", the per-pixel oracle: calc_persp_transform (the 8x8 a/b
-  system through torch.linalg.solve) and warp_perspective (f32
+  system through torch.linalg.solve_ex) and warp_perspective (f32
   coordinates; the fixed-point bilinear for integer images, the float
   bilinear for float ones). Torch ops on the inputs' device: it makes
   test inputs (tools/accuracy_sweep.py places cards in previews with it)
@@ -36,8 +36,11 @@ def calc_persp_transform(source_points, dest_points):
     source_points/dest_points: (..., 4, 2) of (x, y), broadcast against
     each other. Mirrors llcv_calc_persp_transform's a/b setup
     (cv/warp.cpp:46-67); the 8x8 system is solved in float32 by
-    torch.linalg.solve. Returns (..., 3, 3) float32 on source_points'
-    device."""
+    torch.linalg.solve_ex: the LU of torch.linalg.solve, bit for bit,
+    without its check, which reads the LU's info back to the host to raise
+    on a singular matrix (a read a CUDA graph cannot hold); a singular
+    system gives inf or NaN entries, as jnp.linalg.solve does. Returns
+    (..., 3, 3) float32 on source_points' device."""
     sp = torch.as_tensor(source_points, dtype=torch.float32)
     dp = torch.as_tensor(dest_points, dtype=torch.float32, device=sp.device)
     sp, dp = torch.broadcast_tensors(sp, dp)
@@ -51,7 +54,7 @@ def calc_persp_transform(source_points, dest_points):
                        -sy * dy], dim=-1)
     a = torch.cat([top, bot], dim=-2)
     b = torch.cat([dx, dy], dim=-1)
-    x = torch.linalg.solve(a, b)
+    x, _ = torch.linalg.solve_ex(a, b)
     h = torch.cat([x, ones[..., :1]], dim=-1)
     return h.reshape(*x.shape[:-1], 3, 3)
 
@@ -73,7 +76,9 @@ def warp_perspective(image, h_matrix, out_shape, fill_value=0.0,
     out_h, out_w = out_shape
     dev = image.device
     h = torch.as_tensor(h_matrix, dtype=torch.float32, device=dev)
-    hinv = torch.linalg.inv(h)
+    # inv_ex: torch.linalg.inv's bits without its check, which reads the
+    # LU's info back to the host (a read a CUDA graph cannot hold)
+    hinv, _ = torch.linalg.inv_ex(h)
     gy, gx = torch.meshgrid(torch.arange(out_h, dtype=torch.float32,
                                          device=dev),
                             torch.arange(out_w, dtype=torch.float32,

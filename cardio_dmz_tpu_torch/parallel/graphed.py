@@ -1,9 +1,12 @@
-"""The port's counterpart of jax.jit on the serving path: a step captured
-once per input shape as a CUDA graph, then replayed.
+"""The port's counterpart of jax.jit: a step captured once per input shape
+as a CUDA graph, then replayed.
 
-The JAX package jits its serving steps (parallel/streams.make_sharded_step,
-session/host.HostScanner, tools/bench.py): XLA compiles each into one
-program, dispatched once a call. The port's steps are PyTorch ops issued
+The JAX package jits its steps: the serving steps
+(parallel/streams.make_sharded_step, session/host.HostScanner,
+tools/bench.py), the train step (train/trainer.make_train_step), the
+accuracy sweeps, the parity tool's device functions and the stage
+profilers' timed stages. XLA compiles each into one program, dispatched
+once a call. The port's steps are PyTorch ops issued
 one by one from Python, hundreds to thousands a step. graph_step(fn,
 device) records the kernels one call of fn launches into a
 torch.cuda.CUDAGraph and replays them with one launch. A replay runs
@@ -34,9 +37,11 @@ in the port it happened; the step never carries on eagerly.
 On the CPU no graph exists: the same staging runs fn on the static inputs
 at each call, so the CPU tests hold the staging itself.
 
-Arguments and results are tensors, None, and (nested) tuples and
-NamedTuples of them. A Python number among the arguments raises TypeError:
-a graph would freeze it.
+Arguments and results are tensors, None, and (nested) tuples, NamedTuples
+and dicts of them (a train step's parameters and optimizer state are
+dicts, as the JAX step's pytrees are); a dict's key holds its keys in
+sorted order. A Python number among the arguments raises TypeError: a
+graph would freeze it.
 """
 
 import collections
@@ -105,23 +110,27 @@ def pool_bytes(device):
 
 
 def _leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
     if isinstance(tree, tuple):
         return [leaf for x in tree for leaf in _leaves(x)]
     return [tree]
 
 
 def _key(tree):
-    """The jit key of an argument tree: its structure, and each tensor's
-    shape and dtype."""
+    """The jit key of an argument tree: its structure (a dict's keys in
+    sorted order), and each tensor's shape and dtype."""
+    if isinstance(tree, dict):
+        return dict, tuple((k, _key(tree[k])) for k in sorted(tree))
     if isinstance(tree, tuple):
         return type(tree), tuple(_key(x) for x in tree)
     if isinstance(tree, torch.Tensor):
         return tuple(tree.shape), tree.dtype
     if tree is None:
         return None
-    raise TypeError(f"graph_step takes tensors, None and tuples of them; "
-                    f"got a {type(tree).__name__}, which a graph would "
-                    f"freeze")
+    raise TypeError(f"graph_step takes tensors, None, and tuples and dicts "
+                    f"of them; got a {type(tree).__name__}, which a graph "
+                    f"would freeze")
 
 
 def _copy_into(static, tree):
@@ -135,8 +144,9 @@ def _clone(tree):
         if x is None:
             return None
         if not isinstance(x, torch.Tensor):
-            raise TypeError(f"a graphed step returns tensors, None and "
-                            f"tuples of them; got a {type(x).__name__}")
+            raise TypeError(f"a graphed step returns tensors, None, and "
+                            f"tuples and dicts of them; got a "
+                            f"{type(x).__name__}")
         return x.clone()
     return _map(clone, tree)
 
@@ -225,14 +235,20 @@ class _Graph:
             f".tolist(), nonzero, boolean-mask indexing) and no copy from "
             f"pageable host memory; the step is not run eagerly instead")
 
-    def __call__(self, args):
+    def run(self, args):
+        """Copy args into the static inputs and replay the graph (on the
+        CPU: call fn on them); returns the static outputs, which the next
+        run overwrites."""
         _copy_into(self.static_in, args)
         if self.graph is None:
-            return _clone(self.fn(*self.static_in))
+            return self.fn(*self.static_in)
         with torch.cuda.device(self.device):    # replays on its stream
             self.graph.replay()
         REPLAYED.update(self.launches)
-        return _clone(self.static_out)
+        return self.static_out
+
+    def __call__(self, args):
+        return _clone(self.run(args))
 
 
 class GraphedStep:
@@ -246,13 +262,22 @@ class GraphedStep:
         self.device = as_device(device)
         self.entries = {}
 
-    def __call__(self, *args):
+    def _entry(self, args):
         key = _key(args)
         entry = self.entries.get(key)
         if entry is None:
             entry = _Graph(self.fn, self.device, args)
             self.entries[key] = entry
-        return entry(args)
+        return entry
+
+    def __call__(self, *args):
+        return self._entry(args)(args)
+
+    def replay(self, *args):
+        """A call without its results: the arguments copied in and the
+        graph replayed (captured first for a new key), no output cloned.
+        What a timer times: the replay alone."""
+        self._entry(args).run(args)
 
 
 def graph_step(fn, device):

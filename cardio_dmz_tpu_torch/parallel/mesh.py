@@ -108,6 +108,10 @@ def split_sizes(n_streams, n_shards):
 
 
 def _map(fn, tree):
+    """fn applied to every leaf of a tree of (nested) tuples, NamedTuples
+    and dicts, the tree's structure kept."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
     if isinstance(tree, tuple):
         mapped = [_map(fn, x) for x in tree]
         return type(tree)(*mapped) if hasattr(tree, "_fields") \

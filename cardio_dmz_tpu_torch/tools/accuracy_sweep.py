@@ -16,6 +16,12 @@ are the JAX package's bit for bit. The camera sweep places each card in
 its previews with the float warp (ops/warp.warp_perspective), whose
 pixels differ from the JAX package's in a few 1/32 coordinate bins.
 
+The JAX tool jits three functions, and the port runs each as a CUDA graph
+(parallel/graphed.graph_step, one key each: the last batch is padded as
+the JAX tool pads it): the placement warp over a warp batch, the
+rectified session scan with the parameters and the date closed over, and
+the camera step.
+
 Usage: python -m cardio_dmz_tpu_torch.tools.accuracy_sweep [--sessions 512]
        [--camera] [--device cuda]
 """
@@ -27,6 +33,8 @@ import time
 
 import numpy as np
 import torch
+
+from ..parallel.graphed import graph_step
 
 CARD_SRC = [[0, 0], [427, 0], [0, 269], [427, 269]]
 GUIDE_QUAD = [[106, 105], [534, 105], [106, 375], [534, 375]]
@@ -69,7 +77,9 @@ def render_camera_sessions(rng, n_sessions, frames_per_session, warp_batch,
     """(previews (S, T, 480, 640) u8, pans): each session's card placed
     under per-frame jittered perspective quads around the guide rect, on
     a background of 50, warped on `device` (the card when None) in
-    batches of warp_batch, the last one padded as the JAX tool pads it."""
+    batches of warp_batch, the last one padded as the JAX tool pads it,
+    by one graphed step: the homography, the float warp and the
+    background."""
     from .. import synthetic
     from ..ops.warp import calc_persp_transform, warp_perspective
     from ..parallel.mesh import named_device
@@ -96,16 +106,21 @@ def render_camera_sessions(rng, n_sessions, frames_per_session, warp_batch,
                 rng.uniform(-1.5, 1.5, (4, 2)).astype(np.float32)
 
     src = torch.tensor(CARD_SRC, dtype=torch.float32, device=device)
+
+    def place(card, quad):
+        warped = warp_perspective(card, calc_persp_transform(src, quad),
+                                  (480, 640))
+        return torch.where(warped > 0, warped, 50)
+
+    place = graph_step(place, device)
     flat_cards = np.repeat(cards[:, None], T, axis=1).reshape(S * T, 270, 428)
     flat_quads = quads.reshape(S * T, 4, 2)
     ys = np.zeros((S * T, 480, 640), np.uint8)
     for i in range(0, S * T, warp_batch):
         j = min(i + warp_batch, S * T)
-        card = torch.from_numpy(_pad(flat_cards[i:j], warp_batch)).to(device)
-        quad = torch.from_numpy(_pad(flat_quads[i:j], warp_batch)).to(device)
-        warped = warp_perspective(card, calc_persp_transform(src, quad),
-                                  (480, 640))
-        placed = torch.where(warped > 0, warped, 50)
+        placed = place(
+            torch.from_numpy(_pad(flat_cards[i:j], warp_batch)).to(device),
+            torch.from_numpy(_pad(flat_quads[i:j], warp_batch)).to(device))
         ys[i:j] = placed[:j - i].cpu().numpy()
     return ys.reshape(S, T, 480, 640), pans
 
@@ -147,7 +162,9 @@ def report(pans, reads, frames_per_session):
 
 def sweep_reads(n_sessions=512, frames_per_session=8, batch=64, seed=2026,
                 quiet=False, device=None):
-    """(pans, reads) of run_sweep's sessions, session for session."""
+    """(pans, reads) of run_sweep's sessions, session for session: each
+    batch's sessions scanned by one graphed call of batched_scan_frames
+    (its final states)."""
     from ..models.weights import load_all_params
     from ..parallel.mesh import named_device
     from ..parallel.streams import batched_scan_frames
@@ -156,14 +173,15 @@ def sweep_reads(n_sessions=512, frames_per_session=8, batch=64, seed=2026,
     params = load_all_params(device)
     rng = np.random.default_rng(seed)
     now = time.localtime()[:2]
+    run = graph_step(lambda fr: batched_scan_frames(params, fr, now)[0],
+                     device)
     pans, reads = [], []
     while len(pans) < n_sessions:
         n = min(batch, n_sessions - len(pans))
         frames, batch_pans = render_sessions(rng, n, frames_per_session)
         if n < batch:  # the JAX tool pads to its compiled batch shape
             frames = _pad(frames, batch)
-        states, _ = batched_scan_frames(
-            params, torch.from_numpy(frames).to(device), now)
+        states = run(torch.from_numpy(frames).to(device))
         pans += batch_pans
         reads += _reads(states, n)
         _progress("", len(pans), n_sessions, pans, reads, quiet)
@@ -172,7 +190,8 @@ def sweep_reads(n_sessions=512, frames_per_session=8, batch=64, seed=2026,
 
 def camera_sweep_reads(n_sessions=128, frames_per_session=8, batch=32,
                        seed=2026, quiet=False, device=None):
-    """(pans, reads) of run_camera_sweep's sessions, session for session."""
+    """(pans, reads) of run_camera_sweep's sessions, session for session:
+    each frame of a batch one graphed camera step (its states)."""
     from ..models.weights import load_all_params
     from ..parallel.mesh import named_device
     from ..parallel.streams import batched_camera_step, init_stream_states
@@ -183,6 +202,8 @@ def camera_sweep_reads(n_sessions=128, frames_per_session=8, batch=32,
     now = time.localtime()[:2]
     cbcr = torch.full((batch, 240, 320), 128, dtype=torch.uint8,
                       device=device)
+    step = graph_step(lambda st, y, cb, cr: batched_camera_step(
+        params, st, y, cb, cr, scan_expiry=False)[0], device)
     pans, reads = [], []
     while len(pans) < n_sessions:
         n = min(batch, n_sessions - len(pans))
@@ -194,8 +215,7 @@ def camera_sweep_reads(n_sessions=128, frames_per_session=8, batch=32,
         ys = torch.from_numpy(ys).to(device)
         states = init_stream_states(batch, device, now)
         for t in range(frames_per_session):
-            states, _ = batched_camera_step(params, states, ys[:, t], cbcr,
-                                            cbcr, scan_expiry=False)
+            states = step(states, ys[:, t], cbcr, cbcr)
         pans += batch_pans
         reads += _reads(states, n)
         _progress("camera ", len(pans), n_sessions, pans, reads, quiet)

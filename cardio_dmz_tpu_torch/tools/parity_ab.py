@@ -28,6 +28,12 @@ native/refshim/build/; it needs g++ and the system OpenCV).
   tool's (PARITY.md) come from other pixels of the same cards and
   quads.
 
+The port's device functions (port_frames, port_expiry_windows,
+device_sessions, port_camera, port_cards_from_corners, float_cards) run
+their device work as CUDA graphs (parallel/graphed.graph_step), as the JAX
+tool jits its: one graph a call and shape, the conversions to the host
+made from a replay's results.
+
 The case generators and the two sides are functions of their own:
 tests/torch_fixture.py records the reference's answers to the first cases
 (data/ref_session.npz) and chip_smoke.py replays them on the card.
@@ -51,6 +57,7 @@ from ..api import detect_edges, transform_card
 from ..config import ScanConfig
 from ..models import load_all_params
 from ..ops.warp import calc_persp_transform, warp_perspective
+from ..parallel.graphed import graph_step
 from ..parallel.mesh import named_device
 from ..refbridge import (
     FrameRecord, corner_array, corner_points, frame_records,
@@ -244,20 +251,22 @@ def _frames_tensor(frames, device):
 
 def port_frames(params, frames, device):
     """[FrameRecord] of the port's scan_card_image (PAN only) on (N, 270,
-    428) frames, SCAN_BATCH streams a call."""
+    428) frames, SCAN_BATCH streams a graphed call."""
+    scan = graph_step(lambda y: scan_card_image(params, y), device)
     out = []
     for k in range(0, len(frames), SCAN_BATCH):
-        out += frame_records(scan_card_image(
-            params, _frames_tensor(frames[k:k + SCAN_BATCH], device)))
+        out += frame_records(scan(_frames_tensor(frames[k:k + SCAN_BATCH],
+                                                 device)))
     return out
 
 
 def port_expiry_windows(params, frames, device):
     """The device expiry segmentation's MM/YY windows (scan_card_image with
-    scan_expiry, the frames as one batch of streams) in ref_expiry_windows'
-    form."""
-    w = scan_card_image(params, _frames_tensor(frames, device),
-                        scan_expiry=True).expiry_groups
+    scan_expiry, the frames as one batch of streams, one graphed call) in
+    ref_expiry_windows' form."""
+    scan = graph_step(lambda y: scan_card_image(
+        params, y, scan_expiry=True).expiry_groups, device)
+    w = scan(_frames_tensor(frames, device))
     top, left, tops, lefts, valid = (
         x.cpu().numpy() for x in (w.top, w.left, w.char_tops, w.char_lefts,
                                   w.valid))
@@ -285,18 +294,22 @@ def host_session(params, frames, scan_expiry):
 
 
 def device_sessions(params, sessions, scan_expiry, device):
-    """The device step (scanner_step) over (S, T, 270, 428) sessions, one
-    stream a session: [(first PAN or None, first date or None)]; the
-    CYTHON_DMZ date configuration."""
+    """The device step (scanner_step, graphed) over (S, T, 270, 428)
+    sessions, one stream a session: [(first PAN or None, first date or
+    None)]; the CYTHON_DMZ date configuration."""
     config = ScanConfig(scan_expiry=scan_expiry,
                         expiry_allow_past_dates=True)
+
+    def step(state, y):
+        state, (_, res) = scanner_step(params, state, y, config=config)
+        return state, res
+
+    step = graph_step(step, device)
     n = len(sessions)
     state = scanner_reset(NOW, n, device)
     pans, dates = [None] * n, [None] * n
     for t in range(sessions.shape[1]):
-        state, (_, res) = scanner_step(
-            params, state, _frames_tensor(sessions[:, t], device),
-            config=config)
+        state, res = step(state, _frames_tensor(sessions[:, t], device))
         complete = res.complete.cpu().numpy()
         digits = res.predictions.cpu().numpy()
         n_num = res.n_numbers.cpu().numpy()
@@ -311,33 +324,40 @@ def device_sessions(params, sessions, scan_expiry, device):
 
 
 def port_camera(y, cb, orientation, device):
-    """detect_edges -> transform_card (the persp-QR and warp kernels) on
-    (S, 480, 640) previews of one orientation: (found (S,), corners
-    (S, 4, 2) tl tr bl br, cards (S, 270, 428) u8), numpy."""
-    yt, ct = _frames_tensor(y, device), _frames_tensor(cb, device)
-    _, corners = detect_edges(yt, ct, ct, orientation)
-    cards = transform_card(yt, corners, orientation)
+    """detect_edges -> transform_card (the persp-QR and warp kernels), one
+    graphed call, on (S, 480, 640) previews of one orientation: (found
+    (S,), corners (S, 4, 2) tl tr bl br, cards (S, 270, 428) u8), numpy."""
+    def camera(y, c):
+        _, corners = detect_edges(y, c, c, orientation)
+        return corners, transform_card(y, corners, orientation)
+
+    corners, cards = graph_step(camera, device)(
+        _frames_tensor(y, device), _frames_tensor(cb, device))
     found, pts = corner_array(corners)
     return found, pts, cards.cpu().numpy()
 
 
 def port_cards_from_corners(y, corners, orientation, device):
     """transform_card of (S, 480, 640) previews from given (S, 4, 2)
-    corners (tl tr bl br): the persp-QR and warp kernels. numpy."""
-    return transform_card(_frames_tensor(y, device),
-                          corner_points(corners, device=device),
-                          orientation).cpu().numpy()
+    corners (tl tr bl br), one graphed call: the persp-QR and warp
+    kernels. numpy."""
+    card = graph_step(lambda y, c: transform_card(y, c, orientation), device)
+    return card(_frames_tensor(y, device),
+                corner_points(corners, device=device)).cpu().numpy()
 
 
 def float_cards(y, corners, device):
-    """The float route (ops/warp.warp_perspective, float bilinear) from
-    (S, 4, 2) landscape-right corners tl tr bl br."""
+    """The float route (ops/warp.warp_perspective, float bilinear), one
+    graphed call, from (S, 4, 2) landscape-right corners tl tr bl br."""
+    dst = torch.tensor(CARD_SRC, dtype=torch.float32, device=device)
+
+    def warp(y, src):
+        return warp_perspective(y, calc_persp_transform(
+            src, dst.expand(len(src), 4, 2)), (270, 428), fixed_point=False)
+
     src = torch.as_tensor(np.asarray(corners, np.float32), device=device)
-    dst = torch.tensor(CARD_SRC, dtype=torch.float32, device=device).expand(
-        len(src), 4, 2)
-    return warp_perspective(_frames_tensor(y, device),
-                            calc_persp_transform(src, dst), (270, 428),
-                            fixed_point=False).cpu().numpy()
+    return graph_step(warp, device)(_frames_tensor(y, device),
+                                    src).cpu().numpy()
 
 
 # ------------------------------------------------------------------ sweep

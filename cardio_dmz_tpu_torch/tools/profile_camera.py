@@ -7,7 +7,7 @@ adaptive_canny7, and canny + hough_best_line with the camera's Hough
 constants; then detect_edges over all 12 bands (4 edges x 3 planes), the
 exact warp of a fixed quad, preprocess_frame (detection and warp), and the
 full scanner step (PAN + expiry) on noise cards. Each stage is timed alone
-by tools/profiling.event_ms.
+by tools/profiling.event_ms, as replays of its CUDA graph.
 
     python -m cardio_dmz_tpu_torch.tools.profile_camera [--streams 64]
 
@@ -19,7 +19,7 @@ import argparse
 import numpy as np
 import torch
 
-from .profiling import device_label, event_ms, stage_line
+from .profiling import TIMING, device_label, event_ms, stage_line
 
 BANDS = (("top", False), ("left", True))
 # the warp stage's corners (the JAX tool's lines 104-106), a quad a stream
@@ -110,7 +110,7 @@ def main(argv=None):
     device = named_device(args.device, "profile_camera")
     params = load_all_params(device)
     print(f"# streams={args.streams} device={device_label(device)} "
-          f"iters={args.iters}")
+          f"iters={args.iters} {TIMING}")
     times = {}
     for name, fn in stages(params, args.streams, device).items():
         times[name] = event_ms(fn, device, args.iters)

@@ -4,7 +4,9 @@ Counterpart of the JAX package's tools/profile_camera_ablate.py: the
 camera step with the expiry read, in four forms on the JAX tool's inputs
 (RandomState(0) noise previews, then noise cards), each stepped
 `--iters` times with its states carried and timed by
-tools/profiling.event_ms; the marginal cost of a stage is the full form's
+tools/profiling.event_ms, as replays of the step's CUDA graph (the step
+writes its new states over the carried ones, so a replay carries them as
+the JAX tool's loop does); the marginal cost of a stage is the full form's
 time less the form without it:
 
 * full           - preprocess_frame (detection, persp QR, the exact warp)
@@ -24,12 +26,14 @@ runs on the CUDA device; --device cpu times on the CPU's host clock.
 """
 
 import argparse
+import functools
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten
 
 from .profile_camera import camera_inputs, noise
-from .profiling import device_label, event_ms, stage_line
+from .profiling import TIMING, device_label, event_ms, stage_line
 
 STATIC_QUAD = [[106.0, 105.0], [533.0, 108.0], [103.0, 374.0],
                [530.0, 377.0]]
@@ -46,6 +50,13 @@ def parse_args(argv=None):
                     help="the device to run on (default cuda; raises when "
                          "there is no card)")
     return ap.parse_args(argv)
+
+
+@functools.lru_cache(maxsize=None)
+def _static_quad(device):
+    """STATIC_QUAD kept on `device`: made once, not copied from the host at
+    every step."""
+    return torch.tensor(STATIC_QUAD, dtype=torch.float32, device=device)
 
 
 def camera_forms(params):
@@ -71,8 +82,7 @@ def camera_forms(params):
         return scan(states, y, card, found)
 
     def no_detect(states, y, cb, cr):
-        corners = torch.tensor(STATIC_QUAD, dtype=torch.float32,
-                               device=y.device).expand(y.shape[0], 4, 2)
+        corners = _static_quad(y.device).expand(y.shape[0], 4, 2)
         gate = torch.ones(y.shape[0], dtype=torch.bool, device=y.device)
         return scan(states, y, unwarp_card(y, corners), gate)
 
@@ -113,13 +123,17 @@ def main(argv=None):
     forms = camera_forms(params)
     steps = ((forms["full"], planes), (forms["no_detect"], planes),
              (forms["no_warp"], planes), (scan_form(params, True), (frames,)))
-    print(f"# streams={s} device={device_label(device)} iters={args.iters}")
+    print(f"# streams={s} device={device_label(device)} iters={args.iters} "
+          f"{TIMING}")
     times = {}
     for name, (step, inputs) in zip(STAGES, steps):
-        carried = [init_stream_states(s, device, (2026, 1))]
+        carried = init_stream_states(s, device, (2026, 1))
 
         def advance(step=step, inputs=inputs, carried=carried):
-            carried[0] = step(carried[0], *inputs)[0]
+            new = step(carried, *inputs)[0]
+            for old, leaf in zip(tree_flatten(carried)[0],
+                                 tree_flatten(new)[0]):
+                old.copy_(leaf)
         times[name] = event_ms(advance, device, args.iters, warmup=1)
         print(stage_line(name, times[name], device, s), flush=True)
     full, nd, nw, so = (times[k] for k in STAGES)

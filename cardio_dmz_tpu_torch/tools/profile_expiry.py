@@ -9,7 +9,8 @@ _process_stripe over the three stripes, the char trim, and the slash
 conv. The JAX tool times a TPU form of the trim (each crop a one-hot
 contraction); this one times the port's own trim path, as
 best_expiry_seg_device runs it: the 21-row bands, window_select's
-gathered crops and _trim_char.
+gathered crops and _trim_char. Each stage is timed by
+tools/profiling.event_ms, as replays of its CUDA graph.
 
     python -m cardio_dmz_tpu_torch.tools.profile_expiry [--streams 64]
                                                         [--fine]
@@ -22,7 +23,7 @@ import argparse
 import numpy as np
 import torch
 
-from .profiling import device_label, event_ms, stage_line
+from .profiling import TIMING, device_label, event_ms, stage_line
 
 STAGES = ("full step", "pan-only", "expiry seg (all)", "  scharr",
           "  stripes", "categorize", "aggregate")
@@ -117,7 +118,7 @@ def main(argv=None):
     params = load_all_params(device)
     make = fine_stages if args.fine else stages
     print(f"# device={device_label(device)} streams={args.streams} "
-          f"iters={args.iters}")
+          f"iters={args.iters} {TIMING}")
     times = {}
     for name, fn in make(params, args.streams, device).items():
         times[name] = event_ms(fn, device, args.iters)

@@ -4,8 +4,9 @@ Counterpart of the JAX package's tools/profile_pan.py: vseg, hseg,
 categorize and the PAN-only step, each timed alone at `--streams` on the
 JAX tool's inputs (RandomState(0) noise frames and strips), printed as ms
 and frames/s. Each stage is timed by tools/profiling.event_ms: CUDA
-events around `--iters` calls, which the card runs in stream order, so
-the JAX tool's self-feeding chains are not needed.
+events around `--iters` replays of the stage's CUDA graph (the JAX tool
+times jitted stages), which the card runs in stream order, so the JAX
+tool's self-feeding chains are not needed.
 
     python -m cardio_dmz_tpu_torch.tools.profile_pan [--streams 64]
 
@@ -17,7 +18,7 @@ import argparse
 import numpy as np
 import torch
 
-from .profiling import device_label, event_ms, stage_line
+from .profiling import TIMING, device_label, event_ms, stage_line
 
 STAGES = ("vseg (270 rows MLP)", "hseg (staged search)",
           "categorize (3-conv x16)", "full PAN-only step")
@@ -62,7 +63,7 @@ def main(argv=None):
         lambda: number_scores(params, strips, offsets, length),
         lambda: batched_scanner_step(params, states, frames))))
     print(f"# device={device_label(device)} streams={s} "
-          f"iters={args.iters}")
+          f"iters={args.iters} {TIMING}")
     times = {}
     for name, fn in stages.items():
         times[name] = event_ms(fn, device, args.iters)

@@ -3,7 +3,7 @@
 Counterpart of the JAX package's tools/profile_warp.py, on its inputs
 (RandomState(0) noise frames, the guide rect's corners moved by up to 10
 px a stream), each stage timed alone at `--streams` by
-tools/profiling.event_ms:
+tools/profiling.event_ms, as replays of its CUDA graph:
 
 * qr     - persp QR alone (the homographies of the quads)
 * coords - persp QR and the float64 coordinate maps of the warp's plain
@@ -30,7 +30,7 @@ import argparse
 import numpy as np
 import torch
 
-from .profiling import clock_name, device_label, event_ms
+from .profiling import TIMING, clock_name, device_label, event_ms
 
 STAGES = ("qr", "coords", "kernel", "full", "gather")
 GUIDE = [[106, 105], [534, 105], [106, 375], [534, 375]]
@@ -89,7 +89,7 @@ def main(argv=None):
                          f"are {STAGES}")
     fns = stages(args.streams, device)
     print(f"# device={device_label(device)} streams={args.streams} "
-          f"iters={args.iters}")
+          f"iters={args.iters} {TIMING}")
     times = {}
     for name in wanted:
         times[name] = event_ms(fns[name], device, args.iters)

@@ -6,9 +6,10 @@ bench_chain, profile_expiry's bench, stage_bytes' _cost; telem is the
 port's scan/frame.telemetry_zeros). On a TPU they time self-feeding jitted
 chains and read XLA's cost analysis; here:
 
-* event_ms: ms a call, between two CUDA events around many calls. Eager
-  CUDA runs calls in stream order, so no chain is needed. On the CPU the
-  host clock, and clock_name says so.
+* event_ms: ms a replay of a stage's CUDA graph (parallel/graphed.
+  graph_step), between two CUDA events around many replays, as the JAX
+  tools time jitted stages. The card runs replays in stream order, so no
+  chain is needed. On the CPU the host clock, and clock_name says so.
 * profile_step: one call under torch.profiler: device time, device
   operations, the heaviest kernels, and the device's idle share.
 * WorkCounter: a TorchDispatchMode that counts the FLOPs and bytes of the
@@ -30,6 +31,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
+
+from ..parallel.graphed import graph_step
 
 # One H100 SXM (NVIDIA's data sheet, dense, at its 700 W limit): HBM bytes/s;
 # float32 and float64 outside the tensor cores. The port's products run in
@@ -77,18 +80,27 @@ def device_label(device):
         text=True).stdout.strip()
 
 
+# what event_ms times, for the profilers' "#" header lines
+TIMING = "graphed (replays of each stage's CUDA graph)"
+
+
 def event_ms(fn, device, iters=20, warmup=None):
-    """ms a call of fn on `device`: `warmup` calls (3, or `iters` if fewer),
-    then `iters` calls between two CUDA events recorded on the current
-    stream, then a synchronize; on the CPU the host clock around the
-    `iters` calls."""
+    """ms a replay of fn's CUDA graph on `device`. fn takes no arguments
+    (its graph's key is ()); graph_step(fn, device) runs its warm-up calls
+    and the capture at the first replay, then come `warmup` replays (3, or
+    `iters` if fewer) and `iters` replays between two CUDA events recorded
+    on the current stream, then a synchronize. A replay clones no output.
+    On the CPU, where no graph exists, the host clock around `iters` calls
+    of the staging."""
     device = torch.device(device)
+    step = graph_step(fn, device)
+    step.replay()                  # warm-up calls and the capture
     for _ in range(min(3, iters) if warmup is None else warmup):
-        fn()
+        step.replay()
     if device.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(iters):
-            fn()
+            step.replay()
         return 1e3 * (time.perf_counter() - t0) / iters
     with torch.cuda.device(device):
         torch.cuda.synchronize()
@@ -96,7 +108,7 @@ def event_ms(fn, device, iters=20, warmup=None):
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
-            fn()
+            step.replay()
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters

@@ -1,4 +1,5 @@
-"""Retrain the scan's models with the port: init -> Adam over a device mesh
+"""Retrain the scan's models with the port: init -> Adam (fit's train step,
+a CUDA graph on one card) over a device mesh
 (data parallel, with a column-parallel hidden layer when the mesh has model
 ranks) -> held-out eval -> a parameter file in the JAX package's layout,
 which session/checkpoint.load_params_npz of either package reads.
@@ -61,8 +62,9 @@ def _spec(model, device):
 def train_one(model, steps, batch, lr, mesh, seed=0, compare_golden=False,
               device="cuda"):
     """Train one architecture from seed-0 initial parameters on batches
-    from np.random.RandomState(seed), on `device` (the mesh's first device
-    when a mesh is given), and evaluate it on EVAL_BATCH held-out samples
+    from np.random.RandomState(seed), made on the host, on `device` (the
+    mesh's first device when a mesh is given) through fit's graphed train
+    step, and evaluate it on EVAL_BATCH held-out samples
     from seed + 99. Returns (params, accuracy, the golden weights' accuracy
     on the same eval or None)."""
     from ..models.weights import load_np, module_from_numpy

@@ -8,6 +8,7 @@ from .trainer import (  # noqa: F401
     mlp_loss,
     pan_conv_loss,
 )
+from .optim import AdamState, adam, apply_updates  # noqa: F401
 from .data import (  # noqa: F401
     synthetic_digit_batch,
     synthetic_expiry_digit_batch,

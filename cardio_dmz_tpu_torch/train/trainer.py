@@ -2,23 +2,31 @@
 
 Counterpart of the JAX package's train/trainer.py. Parameters are a dict
 of tensors, the models their trainable forms (models/zoo.apply_*), the
-optimizer torch.optim.Adam with optax.adam's defaults. Over a mesh
-(parallel/mesh.make_mesh) the port does explicitly what the JAX package's
-param_shardings asks XLA to do: one master copy of the parameters on the
+optimizer train/optim.adam (optax.adam's update, op for op). The train
+step is the JAX step, a pure (params, opt_state, inputs, labels) ->
+(params, opt_state, loss), and like the JAX step it is compiled: captured
+as a CUDA graph by parallel/graphed.graph_step (the port's jax.jit) on
+its device.
+
+Over a mesh (parallel/mesh.make_mesh) the step does explicitly what the
+JAX package's param_shardings asks XLA to do: the parameters live on the
 mesh's first device; each data group steps its slice of the batch on its
 device through copies of the parameters (p.to(device)), so that one
-backward() reduces the gradients into the master copy; and with more than
-one model rank the hidden layer is column-parallel: each rank computes its
-block of hidden_w / hidden_b rows, and the hidden activations are gathered
-before the logistic layer. One process, no torch.distributed.
+gradient reduces the groups' into the parameters; and with more than one
+model rank the hidden layer is column-parallel: each rank computes its
+block of hidden_w / hidden_b rows, and the hidden activations are
+gathered before the logistic layer. One process, no torch.distributed.
 """
 
+import functools
 import math
 
 import torch
 
 from ..models.zoo import apply_expiry_conv, apply_mlp, apply_pan_conv
-from ..parallel.mesh import split_sizes
+from ..parallel.graphed import graph_step
+from ..parallel.mesh import as_device, split_sizes
+from .optim import adam, apply_updates
 
 
 def glorot_uniform(generator, shape, device, scale=1.0):
@@ -77,14 +85,22 @@ def init_expiry_conv_params(generator, device):
     }
 
 
+@functools.lru_cache(maxsize=None)
+def _clip_bounds(device, dtype):
+    """The clip's bounds 1e-12 and 1 as 0-d tensors, kept on `device`: made
+    once, not copied from the host at every step."""
+    return (torch.tensor(1e-12, dtype=dtype, device=device),
+            torch.tensor(1.0, dtype=dtype, device=device))
+
+
 def _xent(probs, labels):
     """Mean cross-entropy as the JAX package writes it: the log of the
     softmax clipped to [1e-12, 1]. The clip is a maximum and a minimum
     against tensors, whose gradient at a tie is split in half as
     jnp.clip's is (an f32 softmax saturates to exactly 1.0; torch.clamp
     passes all of it)."""
-    clipped = torch.minimum(torch.maximum(probs, probs.new_tensor(1e-12)),
-                            probs.new_tensor(1.0))
+    low, high = _clip_bounds(probs.device, probs.dtype)
+    clipped = torch.minimum(torch.maximum(probs, low), high)
     logp = torch.log(clipped)
     return -logp.gather(1, labels.long()[:, None]).mean()
 
@@ -119,23 +135,45 @@ def column_parallel(w, b, row_blocks, devices):
     return product
 
 
+def _one_device(mesh, home):
+    """Whether every device of the mesh is `home` (the card machine's
+    layout, and dryrun_multichip's over one card named n times)."""
+    return {as_device(d) for row in mesh.devices for d in row} == {
+        as_device(home)}
+
+
 def make_train_step(loss_fn, optimizer, mesh=None, params_template=None):
-    """One step of `optimizer` on a batch's mean loss: a function
-    (params, inputs, labels) -> the loss before the update (a 0-d tensor).
-    params: the dict of leaf tensors that `optimizer` steps, on the mesh's
-    first device; inputs, labels: tensors on any device.
+    """The JAX package's train step: (params, opt_state, inputs, labels) ->
+    (params, opt_state, loss), a pure function. params: a dict of tensors
+    on the step's device, `home`: the mesh's first device, or without a
+    mesh params_template's device; opt_state: optimizer.init(params);
+    inputs, labels:
+    tensors on any device. The loss is the batch's mean loss before the
+    update (a 0-d tensor); the gradients come from torch.autograd.grad on
+    detached copies of the parameters, and optimizer.update (train/optim)
+    is applied in the same step.
+
+    The step is graph_step(step, home): captured as one CUDA graph a
+    shape on a CUDA device, staged on the CPU. With a mesh whose devices
+    are all `home`, the data groups, their (size / n) weights and the
+    column-parallel blocks are all in the one graph. A mesh that names
+    distinct devices is stepped eagerly: a graph is captured on one
+    device. (Graphs of such a step, one a device, are a later item.)
 
     With a mesh, each data group takes its slice of the batch (as even as
     they go) to its first device, and the loss is the slices' losses
     weighted by their share of the batch. params_template: the parameters
-    (or a dict of the same shapes), needed with a mesh: with model_parallel
-    > 1 the hidden layer's rows are cut from it into one block a model
+    (or a dict of the same shapes on their device); with model_parallel >
+    1 the hidden layer's rows are cut from it into one block a model
     rank."""
+    if params_template is None:
+        raise ValueError("make_train_step: params_template names the "
+                         "parameters' shapes and device")
     if mesh is None:
         groups, row_blocks = None, None
+        home = next(iter(params_template.values())).device
     else:
-        if params_template is None:
-            raise ValueError("make_train_step: a mesh needs params_template")
+        home = mesh.devices[0][0]
         groups = mesh.devices
         ranks = len(groups[0])
         n_hidden = params_template["hidden_w"].shape[0]
@@ -161,52 +199,62 @@ def make_train_step(loss_fn, optimizer, mesh=None, params_template=None):
                                         devices)
         return out
 
-    def step(params, inputs, labels):
-        optimizer.zero_grad(set_to_none=True)
-        home = next(iter(params.values())).device
+    def batch_loss(params, inputs, labels):
         if groups is None:
-            loss = loss_fn(params, inputs.to(home), labels.to(home))
-        else:
-            n, start, loss = len(labels), 0, 0.0
-            for devices, size in zip(groups, split_sizes(n, len(groups))):
-                part = slice(start, start + size)
-                start += size
-                if size == 0:
-                    continue
-                part_loss = loss_fn(group_params(params, devices),
-                                    inputs[part].to(devices[0]),
-                                    labels[part].to(devices[0]))
-                loss = loss + (size / n) * part_loss.to(home)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+            return loss_fn(params, inputs.to(home), labels.to(home))
+        n, start, loss = len(labels), 0, 0.0
+        for devices, size in zip(groups, split_sizes(n, len(groups))):
+            part = slice(start, start + size)
+            start += size
+            if size == 0:
+                continue
+            part_loss = loss_fn(group_params(params, devices),
+                                inputs[part].to(devices[0]),
+                                labels[part].to(devices[0]))
+            loss = loss + (size / n) * part_loss.to(home)
+        return loss
 
-    return step
+    def step(params, opt_state, inputs, labels):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        loss = batch_loss(leaves, inputs, labels)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        updates, opt_state = optimizer.update(grads, opt_state)
+        params = apply_updates({k: v.detach() for k, v in leaves.items()},
+                               updates)
+        return params, opt_state, loss.detach()
+
+    if mesh is not None and not _one_device(mesh, home):
+        return step
+    return graph_step(step, home)
 
 
 def fit(loss_fn, params, data_iter, *, steps=100, learning_rate=1e-3,
         mesh=None, log_every=0):
-    """Minimal fit loop. data_iter yields (inputs, labels) numpy batches.
+    """Minimal fit loop, the JAX package's. data_iter yields (inputs,
+    labels) numpy batches.
 
-    The optimizer is torch.optim.Adam(learning_rate) with optax.adam's
-    defaults, betas (0.9, 0.999) and eps 1e-8, which both add to the root
-    of the bias-corrected second moment. Trains copies of `params` on
-    their device, or on the mesh's first device; returns (params, losses):
-    the trained parameters as a dict of tensors and each step's loss as a
-    float."""
+    The optimizer is train/optim.adam(learning_rate), optax.adam's update
+    with its defaults (b1 0.9, b2 0.999, eps 1e-8). Trains copies of
+    `params` on their device, or on the mesh's first device, through
+    make_train_step's graphed step, holding the parameters and the
+    optimizer state as values; returns (params, losses): the trained
+    parameters as a dict of tensors and each step's loss as a float."""
     home = mesh.devices[0][0] if mesh is not None else next(
         iter(params.values())).device
-    params = {k: v.detach().to(home, copy=True).requires_grad_(True)
-              for k, v in params.items()}
-    optimizer = torch.optim.Adam(list(params.values()), lr=learning_rate,
-                                 betas=(0.9, 0.999), eps=1e-8)
+    params = {k: v.detach().to(home, copy=True) for k, v in params.items()}
+    optimizer = adam(learning_rate)
+    opt_state = optimizer.init(params)
     step = make_train_step(loss_fn, optimizer, mesh=mesh,
                            params_template=params)
     losses = []
     for i in range(steps):
         inputs, labels = next(data_iter)
-        loss = step(params, torch.as_tensor(inputs), torch.as_tensor(labels))
+        params, opt_state, loss = step(params, opt_state,
+                                       torch.as_tensor(inputs),
+                                       torch.as_tensor(labels))
         losses.append(float(loss))
         if log_every and (i + 1) % log_every == 0:
             print(f"step {i + 1}: loss {losses[-1]:.4f}")
-    return {k: v.detach() for k, v in params.items()}, losses
+    return params, losses

@@ -4,10 +4,12 @@ in-graph expiry read (the full steps), the host side of serving around
 them (the single-stream HostScanner, checkpoints, the step split over a
 device list, the serving loop behind the frame pump), training, the
 entry hooks (entry, dryrun_multichip), the tools, the profilers, the
-compiled reference's recorded answers, the weights extraction tool, and
-the serving steps captured as CUDA graphs (parallel/graphed.graph_step,
-the port's jax.jit), which make_sharded_step, make_sharded_camera_step,
-HostScanner and tools/bench.py run.
+compiled reference's recorded answers, the weights extraction tool, the
+serving steps captured as CUDA graphs (parallel/graphed.graph_step, the
+port's jax.jit), which make_sharded_step, make_sharded_camera_step,
+HostScanner and tools/bench.py run, and the JAX package's other jit
+sites as graphs: the train step, the accuracy sweeps' steps, the parity
+tool's device functions and the stage profilers' timed stages.
 
     python3 chip_smoke.py            (from the repo root, on a CUDA machine)
 
@@ -145,9 +147,9 @@ without printing its last line:
             tests' held-out floors (PAN 0.8 after 100 steps, vseg 0.9,
             slash 0.95, expiry 0.9 after 120); the retrained parameters
             saved and loaded into the serving modules give the trainable
-            form's outputs within 1e-5; ms a train step at batch 64 (and
-            4096 for the PAN conv) with its device time and operations;
-            no serving kernel launched
+            form's outputs within 1e-5; no serving kernel launched. fit
+            and train_one run the graphed train step (make_train_step,
+            train/optim.adam); its times are phase 26's
 20. entry   entry() on the card equals the JAX entry()'s outputs (usable and
             y_offset exact, scores within 1e-5; the fixture); then
             dryrun_multichip(4) over four copies of cuda:0 (a 2 x 2 mesh,
@@ -166,7 +168,8 @@ without printing its last line:
             its host-clock ms, device ms and operations and the device's
             idle share;
             the detector finds all 16 of the camera shape's rendered
-            previews; tools/accuracy_sweep.py's rectified sweep at
+            previews; tools/accuracy_sweep.py's rectified sweep (its
+            steps graphed) at
             its defaults (512 sessions of 8 frames), whose reads equal the
             JAX package's (data/sweep_session.npz, written by
             tests/torch_fixture.py) session for session with no wrong
@@ -177,7 +180,8 @@ without printing its last line:
             over 1, 2 and 4 copies of cuda:0, with the camera step
 22. profilers
             each stage profiler of cardio_dmz_tpu_torch/tools/ in this
-            process at its defaults (64 streams), 3 timed calls a stage:
+            process at its defaults (64 streams), 3 timed replays of each
+            stage's CUDA graph (tools/profiling.event_ms):
             profile_pan, profile_expiry (and --fine), profile_camera,
             profile_camera_ablate, profile_warp; every stage line present
             with a time above 0; roofline.py's three records at 256
@@ -209,7 +213,8 @@ without printing its last line:
             four orientations through detect_edges (found equal, corners
             within 1e-2 px) and transform_card from the C++'s corners
             (its card bit for bit, through persp QR and the warp), each
-            card's scan against the C++'s; the agreement counts and each
+            card's scan against the C++'s, each through the parity
+            tool's graphed device functions; the agreement counts and each
             kernel's launches in the phase on lines of their own. The
             card's machine has no OpenCV, so the oracle is never linked
             here
@@ -237,11 +242,28 @@ without printing its last line:
             graphed and eager, and two shards on one card (129 + 127
             streams) graphed and eager, PAN-only and full, beside the
             unsplit eager step
+26. jit sites
+            the JAX package's other jit sites as graphs: for each model
+            of phase 19, 5 train steps at batch 64 from the seed-0
+            parameters through the eager step twice (bit for bit: the
+            eager step is deterministic) and through its graph (bit for
+            bit with them: parameters, mu, nu, count, loss); the step at
+            batch 64 (and 4096 for the PAN conv) eager and graphed in
+            turns: host-clock ms, device ms and operations, host launches
+            a step, the operations of one bare replay, the capture's
+            seconds; train_one's seconds graphed and eager; no serving
+            kernel launched; the rectified sweep at 128 sessions and the
+            camera sweep at 128, eager and graphed (EagerStep in
+            graph_step's place): reads equal session for session and to
+            phase 21's, seconds of each; every stage profiler's stages
+            eager beside phase 22's graphed ms
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times from
 kernel_ms: many calls captured in one CUDA graph and replayed, so the
-wrappers' Python is not inside them. Stage splits and step times do include
-the host's launches (event_ms, host clock).
+wrappers' Python is not inside them. The stage splits of phases 6, 10, 12
+and 13 and their step times are eager and include the host's launches
+(event_ms, host clock); the stage profilers (phases 22, 26) time graph
+replays.
 
 Each serving phase sets every kernel's launch count to 0 just before its
 run and reads them just after, and prints them on a line of its own. A
@@ -267,6 +289,7 @@ cardio_dmz_tpu_torch/_build/.
 """
 
 import collections
+import contextlib
 import hashlib
 import json
 import os
@@ -1960,6 +1983,7 @@ GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
 # expiry conv's dead ReLU units).
 FIT_ATOL, FIT_SMALL_GRAD_ATOL, FIT_SMALL_GRAD = 1e-5, 1e-4, 2e-7
 SERVING_BATCH = N_STREAMS * 16      # the PAN conv's cells at 256 streams
+TRAIN_GRAPH_STEPS = 5      # phase 26: graphed train steps against eager
 
 
 def train_run(fixture, model):
@@ -2051,23 +2075,74 @@ def check_fit(loss_fn, run, dev):
     return loss_err, worst, where, grad_there, beyond, small
 
 
-def train_step_timing(port, model, batch, dev, reps=20):
-    """(host-clock ms a train step, device ms and device operations of
-    one) for `model` at `batch` on dev: the step of fit (zero_grad,
-    forward, backward, Adam) on one batch already on the card. The
-    profiler now and then records no device work at all; after three such
-    tries the device numbers are None (not measured)."""
+def train_batches(model, batch, n, dev, seed=1):
+    """(init_fn, loss_fn, n batches of `batch` on dev): `model`'s seed-0
+    parameters' maker, its loss and RandomState(seed) batches."""
     from cardio_dmz_tpu_torch.tools.train_models import _spec
-    from cardio_dmz_tpu_torch.train import make_train_step
     init_fn, loss_fn, _, data_fn = _spec(model, dev)
-    params = {k: v.requires_grad_(True) for k, v in init_fn().items()}
-    optimizer = torch.optim.Adam(list(params.values()), lr=TRAIN_LR)
-    step = make_train_step(loss_fn, optimizer)
-    x, y = (torch.from_numpy(a).to(dev)
-            for a in data_fn(np.random.RandomState(1), batch))
-    ms = host_ms(lambda: step(params, x, y), reps)
-    prof = profile_step(lambda: step(params, x, y))
-    return ms, prof["device_ms"], prof["device_ops"]
+    rng = np.random.RandomState(seed)
+    return init_fn, loss_fn, [
+        tuple(torch.from_numpy(a).to(dev) for a in data_fn(rng, batch))
+        for _ in range(n)]
+
+
+def train_graph_bits(model, dev):
+    """The graphed train step (make_train_step, train/optim.adam) against
+    its eager form over TRAIN_GRAPH_STEPS steps at TRAIN_BATCH from the
+    seed-0 parameters: the eager step twice first (the same bits, or the
+    eager step itself is not deterministic), then the graph; every leaf
+    of the parameters, mu, nu, count and loss bit for bit at every step.
+    Returns the leaves a step and the graph's capture seconds."""
+    from cardio_dmz_tpu_torch.train import adam, make_train_step
+    init_fn, loss_fn, batches = train_batches(model, TRAIN_BATCH,
+                                              TRAIN_GRAPH_STEPS, dev)
+    optimizer = adam(TRAIN_LR)
+    step = make_train_step(loss_fn, optimizer, params_template=init_fn())
+
+    def run(fn):
+        params = init_fn()
+        state, out = optimizer.init(params), []
+        for x, y in batches:
+            params, state, loss = fn(params, state, x, y)
+            out.append((params, state, loss))
+        return out
+
+    first, second, graphed = run(step.fn), run(step.fn), run(step)
+    for what, other in (("eager against eager", second),
+                        ("graphed against eager", graphed)):
+        for i, (a, b) in enumerate(zip(first, other)):
+            leaves = assert_bits(a, b, f"{model} train step {i}, {what}")
+    entry, = step.entries.values()
+    return leaves, entry.capture_s
+
+
+def train_step_timing(model, batch, dev, reps=20):
+    """The train step at `batch`, graphed and eager (step.fn), in turns:
+    host-clock ms (median, in_turns), device ms and device operations of
+    one step (torch.profiler; None: not measured), host launches a step,
+    the device operations of one bare replay (the graph's nodes and the
+    argument copies) and the capture's seconds."""
+    from cardio_dmz_tpu_torch.train import adam, make_train_step
+    init_fn, loss_fn, ((x, y),) = train_batches(model, batch, 1, dev)
+    optimizer = adam(TRAIN_LR)
+    params = init_fn()
+    state = optimizer.init(params)
+    step = make_train_step(loss_fn, optimizer, params_template=params)
+    step(params, state, x, y)
+    entry, = step.entries.values()
+    eager_ms, graph_ms = in_turns(lambda: step.fn(params, state, x, y),
+                                  lambda: step(params, state, x, y), reps)
+    out = {"eager_ms": eager_ms, "graph_ms": graph_ms,
+           "capture_s": entry.capture_s}
+    for form, fn in (("eager", lambda: step.fn(params, state, x, y)),
+                     ("graph", lambda: step(params, state, x, y))):
+        prof = profile_step(fn)
+        out[f"{form}_device_ms"] = prof["device_ms"]
+        out[f"{form}_device_ops"] = prof["device_ops"]
+        out[f"{form}_host_launches"] = host_launches(fn)[0]
+    out["replay_device_ops"] = profile_step(
+        lambda: step.replay(params, state, x, y))["device_ops"]
+    return out
 
 
 def train_phase(port, kernels, card, dev):
@@ -2118,20 +2193,12 @@ def train_phase(port, kernels, card, dev):
         if not served <= SCORE_ATOL:
             raise AssertionError(f"{model}: the serving module differs from "
                                  f"the trainable form by {served}")
-        timings = {b: train_step_timing(port, model, b, dev)
-                   for b in ((TRAIN_BATCH, SERVING_BATCH)
-                             if model == "pan_conv" else (TRAIN_BATCH,))}
-        print(f"{model}: {steps} steps in {seconds:.3f} s (batches made on "
-              f"the host), held-out accuracy {acc:.4f} > {floor}; saved and "
-              f"loaded into the serving module: outputs within {served:.3g}; "
-              + "; ".join(f"train step at batch {b}: {ms:.3f} ms host clock, "
-                          + (f"{dms:.3f} ms device over {ops} device "
-                             f"operations" if ops else
-                             "device time not measured (the profiler saw "
-                             "no device work)")
-                          for b, (ms, dms, ops) in timings.items())
-              + f"; card {card}")
-        out[model] = {"accuracy": acc, "timings": timings}
+        print(f"{model}: {steps} steps of the graphed step in "
+              f"{seconds:.3f} s (batches made on the host), held-out "
+              f"accuracy {acc:.4f} > {floor}; saved and loaded into the "
+              f"serving module: outputs within {served:.3g} (the train "
+              f"step's times: phase 26); card {card}")
+        out[model] = {"accuracy": acc, "train_one_s": seconds}
     launches = read_launches(kernels)
     if any(launches.values()):
         raise AssertionError(f"training launched a serving kernel: "
@@ -2252,8 +2319,8 @@ def sweeps(port, dev):
     from cardio_dmz_tpu_torch.tools import accuracy_sweep
     fixture = load_npz(fixture_path(port, "sweep_session.npz"))
     t0 = time.perf_counter()
-    pans, reads = accuracy_sweep.sweep_reads(*SWEEP_ARGS, quiet=True,
-                                             device=dev)
+    rect_reads = pans, reads = accuracy_sweep.sweep_reads(
+        *SWEEP_ARGS, quiet=True, device=dev)
     rect_s = time.perf_counter() - t0
     rect = accuracy_sweep.report(pans, reads, SWEEP_ARGS[1])
     want = _fixture_reads(fixture, "rect")
@@ -2282,7 +2349,8 @@ def sweeps(port, dev):
                              f"pan, read, JAX read): {differ}")
     return {"rect": rect, "rect_s": rect_s, "camera": camera,
             "camera_s": camera_s, "camera_differ": differ,
-            "jax_camera": json.loads(str(fixture["camera_report"]))}
+            "jax_camera": json.loads(str(fixture["camera_report"])),
+            "reads": {"rect": rect_reads, "camera": (pans, reads)}}
 
 
 def tools_phase(port, kernels, params, card, dev):
@@ -2326,7 +2394,7 @@ def tools_phase(port, kernels, params, card, dev):
           f"streams "
           f"({time.perf_counter() - t0:.3f} s): {json.dumps(curve)}; "
           f"card {card}")
-    return {"launches": launches}
+    return {"launches": launches, "reads": swept["reads"]}
 
 
 # --- 22 profilers -----------------------------------------------------------
@@ -2516,7 +2584,7 @@ def profilers_phase(port, kernels, params, expiry, card, dev):
     read = rendered_cards_phase(port, params, expiry, dev)
     print(f"the port's renderer draws the fixture's dated cards bit for bit "
           f"without PIL; the full step reads {read}")
-    return {"launches": launches}
+    return {"launches": launches, "times": times}
 
 
 def sha256(images):
@@ -3143,6 +3211,132 @@ def graphs_phase(port, params, fixtures, dates, card, dev):
                          for shape, run in runs.items()}}
 
 
+# --- 26 jit sites -------------------------------------------------------------
+
+# phase 26's rectified sweep, eager and graphed: the first two batches of
+# phase 21's (sweep_session.npz's first 128 sessions)
+JIT_SWEEP_ARGS = (128,) + SWEEP_ARGS[1:]
+
+
+class EagerStep:
+    """graph_step's stand-in for the eager form of a graphed site: fn
+    called as it is, for comparison with the graph."""
+
+    def __init__(self, fn, device):
+        self.fn = fn
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+    def replay(self, *args):
+        self.fn(*args)
+
+
+@contextlib.contextmanager
+def eager_sites(*modules):
+    """Within, each module's graph_step makes an EagerStep."""
+    with contextlib.ExitStack() as stack:
+        for module in modules:
+            stack.enter_context(mock.patch.object(module, "graph_step",
+                                                  EagerStep))
+        yield
+
+
+def train_one_seconds(model, dev):
+    """train_one's seconds (TRAIN_FLOORS' steps at TRAIN_BATCH, batches
+    made on the host) graphed and eager, in turns (graphed, eager), and
+    the held-out accuracies."""
+    from cardio_dmz_tpu_torch.tools.train_models import train_one
+    from cardio_dmz_tpu_torch.train import trainer
+    steps = TRAIN_FLOORS[model][0]
+    out = {}
+    for form in ("graphed", "eager"):
+        with (eager_sites(trainer) if form == "eager"
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            _, acc, _ = train_one(model, steps, TRAIN_BATCH, TRAIN_LR, None,
+                                  device=dev)
+            torch.cuda.synchronize()
+            out[form] = (time.perf_counter() - t0, acc)
+    return out
+
+
+def jit_sweeps(port, dev, graphed_reads):
+    """The rectified sweep at JIT_SWEEP_ARGS and the camera sweep at
+    CAMERA_SWEEP_ARGS, eager then graphed: reads equal session for
+    session, and equal to phase 21's graphed reads (graphed_reads) and
+    the fixture's; seconds of each."""
+    from cardio_dmz_tpu_torch.tools import accuracy_sweep
+    runs = {}
+    for name, fn, args in (
+            ("rect", accuracy_sweep.sweep_reads, JIT_SWEEP_ARGS),
+            ("camera", accuracy_sweep.camera_sweep_reads,
+             CAMERA_SWEEP_ARGS)):
+        for form in ("eager", "graphed"):
+            with (eager_sites(accuracy_sweep) if form == "eager"
+                  else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                reads = fn(*args, quiet=True, device=dev)
+                runs[name, form] = (reads, time.perf_counter() - t0)
+        (eager, _), (graphed, _) = runs[name, "eager"], runs[name, "graphed"]
+        n = args[0]
+        want = tuple(r[:n] for r in graphed_reads[name])
+        if eager != graphed or graphed != want:
+            raise AssertionError(f"{name} sweep: eager and graphed reads "
+                                 f"differ, or differ from phase 21's")
+    return {f"{name} {form}": (round(sec, 3), sum(
+        r is not None for r in reads[1])) for (name, form), (reads, sec)
+        in runs.items()}
+
+
+def eager_profilers(dev):
+    """run_profilers with every stage eager (EagerStep in event_ms); the
+    tools' own lines, whose header says graphed, are not printed."""
+    import io
+    from cardio_dmz_tpu_torch.tools import profiling
+    with eager_sites(profiling), contextlib.redirect_stdout(io.StringIO()):
+        return run_profilers(dev)
+
+
+def jit_sites_phase(port, kernels, card, dev, graphed_reads, profiled):
+    """Phase 26: the JAX package's other jit sites as graphs: the train
+    step of each model against its eager form bit for bit, both timed in
+    turns; train_one, the sweeps and the stage profilers graphed and
+    eager."""
+    phase("26 jit sites")
+    t0 = time.perf_counter()
+    reset_launches(kernels)
+    for model in TRAIN_MODELS:
+        leaves, capture_s = train_graph_bits(model, dev)
+        timings = {b: train_step_timing(model, b, dev)
+                   for b in ((TRAIN_BATCH, SERVING_BATCH)
+                             if model == "pan_conv" else (TRAIN_BATCH,))}
+        seconds = train_one_seconds(model, dev)
+        print(f"{model}: {TRAIN_GRAPH_STEPS} train steps at batch "
+              f"{TRAIN_BATCH}, eager twice and graphed, bit for bit "
+              f"({leaves} leaves a step: parameters, mu, nu, count, loss); "
+              f"capture {capture_s:.3f} s; "
+              + "; ".join(f"at batch {b}: " + json.dumps(t)
+                          for b, t in timings.items())
+              + "; train_one s and accuracy " + json.dumps(seconds)
+              + f"; card {card}")
+    launches = read_launches(kernels)
+    if any(launches.values()):
+        raise AssertionError(f"a train step launched a serving kernel: "
+                             f"{launches}")
+    sweeps_seen = jit_sweeps(port, dev, graphed_reads)
+    print(f"sweeps eager and graphed, reads equal session for session and "
+          f"to phase 21's (seconds, sessions accepted): "
+          f"{json.dumps(sweeps_seen)}; card {card}")
+    eager = eager_profilers(dev)
+    print("profilers at {} streams, ms a stage graphed / eager: {}; card {}"
+          .format(PROFILE_STREAMS, json.dumps(
+              {tool: {stage: [round(ms, 4), round(eager[tool][stage], 4)]
+                      for stage, ms in times.items()}
+               for tool, times in profiled.items()}), card))
+    print(f"jit sites: {time.perf_counter() - t0:.3f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3192,6 +3386,8 @@ def main():
     weights = weights_phase(port, kernels, params, fixture, dev)
     graphs = graphs_phase(port, params, (fixture, camera, expiry), dates,
                           card, dev)
+    jit_sites_phase(port, kernels, card, dev, tools["reads"],
+                    profilers["times"])
 
     seconds, total = phase_seconds()
     print(f"phase seconds {json.dumps(seconds)}; total {total:.3f} s")

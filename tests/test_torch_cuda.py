@@ -1,8 +1,8 @@
 """The port on an NVIDIA card: each CUDA kernel (digit prep, persp QR, the
 exact warp) against its plain version, the scan, camera and expiry paths
-on the card against the same paths on the CPU, and each serving step
-replayed as a CUDA graph (parallel/graphed.graph_step) against the eager
-step, bit for bit.
+on the card against the same paths on the CPU, and each serving step and
+each model's train step replayed as a CUDA graph
+(parallel/graphed.graph_step) against the eager step, bit for bit.
 
 These tests skip without a card. They import neither jax nor the JAX
 package, so they also run where only PyTorch is installed:
@@ -353,7 +353,7 @@ def _graph_inputs(shape, n_streams, n_steps, device):
 
 def _leaf_bits(tree):
     from torch.utils._pytree import tree_flatten
-    return [t.contiguous().view(torch.uint8).cpu()
+    return [t.contiguous().reshape(-1).view(torch.uint8).cpu()
             for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
 
@@ -403,3 +403,68 @@ def test_capture_of_a_host_sync_raises(cuda_device):  # noqa: F811
     out = doubled(torch.ones(4, device=cuda_device))
     out = doubled(torch.full((4,), 3.0, device=cuda_device))
     assert out.tolist() == [6.0] * 4
+
+
+TRAIN_MODELS = ("pan_conv", "vseg_mlp", "slash_mlp", "expiry_conv")
+
+
+@pytest.mark.parametrize("model", TRAIN_MODELS)
+def test_graphed_train_step_equals_eager_step(cuda_device,  # noqa: F811
+                                              model):
+    """Five train steps at batch 64 from the seed-0 parameters through
+    make_train_step's eager form (step.fn) twice, then through its CUDA
+    graph: the two eager runs bit for bit first (the step's own ops are
+    deterministic: unfold's backward, the pools' ties, the label gather's
+    scatter), then the graph against them; parameters, mu, nu, count and
+    loss, every leaf, at every step. Training launches no serving
+    kernel."""
+    from cardio_dmz_tpu_torch.tools.train_models import _spec
+    from cardio_dmz_tpu_torch.train import adam, make_train_step
+    init_fn, loss_fn, _, data_fn = _spec(model, cuda_device)
+    rng = np.random.RandomState(1)
+    batches = [tuple(torch.from_numpy(a).to(cuda_device)
+                     for a in data_fn(rng, 64)) for _ in range(5)]
+    optimizer = adam(3e-3)
+    step = make_train_step(loss_fn, optimizer, params_template=init_fn())
+
+    def run(fn):
+        params = init_fn()
+        state, out = optimizer.init(params), []
+        for x, y in batches:
+            params, state, loss = fn(params, state, x, y)
+            out.append(_leaf_bits((params, state, loss)))
+        return out
+
+    first, second, graph = run(step.fn), run(step.fn), run(step)
+    for t, (a, b, g) in enumerate(zip(first, second, graph)):
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), (model, t)
+        assert all(torch.equal(x, y) for x, y in zip(a, g)), (model, t)
+    entry, = step.entries.values()
+    assert entry.launches == {}
+
+
+def test_capture_of_an_item_in_a_train_step_raises(cuda_device):  # noqa: F811
+    """A loss that reads a value back (.item()) inside a train step: the
+    capture raises CaptureError naming the line, and the card stays
+    usable: the same model's step captures and replays after it."""
+    from cardio_dmz_tpu_torch.train import (
+        adam, init_mlp_params, make_train_step, mlp_loss)
+
+    def reads_back(params, x, labels):
+        loss = mlp_loss(params, x, labels)
+        return loss * (loss.item() > 0)
+
+    params = init_mlp_params(torch.Generator().manual_seed(0), 8, 4, 2,
+                             cuda_device)
+    optimizer = adam(3e-3)
+    x = torch.rand(16, 8, device=cuda_device)
+    y = torch.randint(0, 2, (16,), dtype=torch.int32, device=cuda_device)
+    step = make_train_step(reads_back, optimizer, params_template=params)
+    with pytest.raises(CaptureError, match="test_torch_cuda.py"):
+        step(params, optimizer.init(params), x, y)
+    assert step.entries == {}
+    good = make_train_step(mlp_loss, optimizer, params_template=params)
+    state = optimizer.init(params)
+    for _ in range(2):
+        params, state, loss = good(params, state, x, y)
+    assert torch.isfinite(loss) and int(state.count) == 2

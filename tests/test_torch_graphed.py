@@ -17,13 +17,11 @@ what the graphed step owes the port's own eager step, and that is held
 here too.
 """
 
-import weakref
 from unittest import mock
 
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 import torch_fixture as fx
@@ -34,6 +32,7 @@ from cardio_dmz_tpu_torch.parallel import graphed
 from cardio_dmz_tpu_torch.parallel.graphed import WARMUP_CALLS, graph_step
 from cardio_dmz_tpu_torch.session import HostScanner
 from torch_parity import assert_same, port_params, to_np
+from torch_rehearsal import refused
 
 N_STEPS = 4
 HOST_KEYS = ("usable", "vseg_y_offset", "vseg_pattern_type",
@@ -160,41 +159,6 @@ def test_launches_count_replays_not_captures():
 
 # --- what a capture refuses, rehearsed on the CPU ---------------------------
 
-_SYNC_OPS = {"_local_scalar_dense", "nonzero", "masked_select", "item",
-             "is_nonzero", "equal", "_unique2", "unique_dim",
-             "unique_consecutive", "repeat_interleave", "bincount", "histc"}
-
-
-class _HostWork(TorchDispatchMode):
-    """Records what a CUDA graph cannot hold, as far as the CPU shows it:
-    an op that reads a value back to the host, boolean-mask indexing, and
-    a tensor with elements that no op of the call made (a tensor built
-    from host data each call, which on the card is a copy from pageable
-    memory). Tensors the call did not make but that outlive it (the
-    parameters, the tables the ops cache) are told apart by the caller:
-    they come back as the same objects at the next call."""
-
-    def __init__(self):
-        super().__init__()
-        self.made, self.syncs, self.foreign = {}, [], []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        name = func.__name__.split(".")[0]
-        inputs = _tensors((args, kwargs))
-        if name in _SYNC_OPS or (name in ("index", "index_put") and any(
-                t.dtype == torch.bool for t in _tensors(args[1:]))):
-            self.syncs.append(str(func))
-        for t in inputs:
-            ref = self.made.get(id(t))
-            if (ref is None or ref() is not t) and t.dim() > 0:
-                self.foreign.append((str(func), t))
-        out = func(*args, **kwargs)
-        for t in _tensors(out):
-            self.made[id(t)] = weakref.ref(t)
-        return out
-
-
 def _small_inputs(n_streams):
     rng = np.random.RandomState(0)
     frames = torch.from_numpy(
@@ -223,17 +187,7 @@ def test_step_holds_nothing_a_capture_refuses(shape):
         return batched_scanner_step(params, state, frames, expiry)
 
     state = init_stream_states(2, "cpu", fx.NOW)
-    step(state)                        # builds the tables, as the warm-up
-    runs = []
-    for _ in range(2):
-        with _HostWork() as mode:
-            step(state)
-        runs.append(mode)
-    assert runs[1].syncs == []
-    outliving = {id(t) for _, t in runs[0].foreign}
-    fresh = [(op, tuple(t.shape)) for op, t in runs[1].foreign
-             if id(t) not in outliving]
-    assert fresh == []
+    assert refused(lambda: step(state)) == ([], [])
 
 
 # --- the slice against the JAX package ---------------------------------------

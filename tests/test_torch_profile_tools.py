@@ -184,6 +184,8 @@ def test_tool_prints_the_jax_tool_stage_names(name):
         assert printed in out, (printed, out)
     if name not in ("roofline", "stage_bytes", "buffer_hogs"):
         assert "[cpu host clock]" in out
+        header = [line for line in out.splitlines() if line.startswith("#")]
+        assert "graphed" in header[0], header
         assert all(ms > 0 for ms in run_tool(name)[1].values())
 
 

@@ -27,6 +27,7 @@ from test_torch_synthetic import WARP_MAX_LEVELS, WARP_PIXEL_SHARE
 from torch_fixture import SWEEP, SWEEP_FIXTURE, jax_camera_sweep, jax_sweep
 from cardio_dmz_tpu.tools import accuracy_sweep as jax_tool
 from cardio_dmz_tpu_torch.ops import warp as port_warp
+from cardio_dmz_tpu_torch.parallel.graphed import WARMUP_CALLS
 from cardio_dmz_tpu_torch.tools import accuracy_sweep as tool
 
 CAMERA_RUN = (4, 4, 4, 2026)       # sessions, frames, batch, seed
@@ -93,11 +94,18 @@ def test_render_camera_sessions_match_jax():
     n, frames, batch, seed = CAMERA_RUN
     _, want_pans, _, want_previews, want_quads = jax_camera_sweep(
         *CAMERA_RUN)
-    with mock.patch.object(port_warp, "calc_persp_transform",
-                           wraps=port_warp.calc_persp_transform) as solve:
+    seen, solve = [], port_warp.calc_persp_transform
+
+    def record(src, quad):
+        seen.append(quad.clone())    # the graph's static input, reused
+        return solve(src, quad)
+
+    with mock.patch.object(port_warp, "calc_persp_transform", record):
         previews, pans = tool.render_camera_sessions(
             np.random.default_rng(seed), n, frames, batch, device="cpu")
-    quads = torch.cat([call.args[1] for call in solve.call_args_list])
+    # the graphed placement runs its first batch WARMUP_CALLS more times
+    assert all(torch.equal(q, seen[0]) for q in seen[:WARMUP_CALLS + 1])
+    quads = torch.cat(seen[WARMUP_CALLS:])
     assert pans == want_pans
     np.testing.assert_array_equal(quads.numpy(), want_quads)
     assert previews.shape == (n, frames, 480, 640)

@@ -169,24 +169,32 @@ def test_pool_and_relu_ties_split_as_jax(model):
 
 
 def test_adam_matches_optax():
-    """torch.optim.Adam with fit's settings against optax.adam, fed the same
-    gradients at three scales: both add eps to the root of the
-    bias-corrected second moment."""
+    """train/optim.adam, the optimizer of fit's step, against optax.adam,
+    fed the same gradients at three scales: parameters, moments and count
+    within 1e-6 after each update."""
+    from cardio_dmz_tpu_torch.train import adam, apply_updates
     rng = np.random.RandomState(0)
     w0 = rng.randn(64).astype(np.float32)
     grads = [(rng.randn(64) * scale).astype(np.float32)
              for scale in (1.0, 1e-3, 1e-9)]
     opt = optax.adam(3e-3)
     w, state = jnp.asarray(w0), opt.init(jnp.asarray(w0))
+    port = adam(3e-3)
+    p = {"w": torch.from_numpy(w0)}
+    p_state = port.init(p)
     for g in grads:
         updates, state = opt.update(jnp.asarray(g), state, w)
         w = optax.apply_updates(w, updates)
-    p = torch.tensor(w0, requires_grad=True)
-    adam = torch.optim.Adam([p], lr=3e-3, betas=(0.9, 0.999), eps=1e-8)
-    for g in grads:
-        p.grad = torch.from_numpy(g)
-        adam.step()
-    np.testing.assert_allclose(p.detach().numpy(), np.asarray(w), atol=1e-6)
+        p_updates, p_state = port.update({"w": torch.from_numpy(g)},
+                                         p_state)
+        p = apply_updates(p, p_updates)
+        np.testing.assert_allclose(p["w"].numpy(), np.asarray(w), atol=1e-6)
+        for got, want in ((p_state.mu["w"], state[0].mu),
+                          (p_state.nu["w"], state[0].nu)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=1e-6)
+        assert p_state.count.dtype == torch.int32
+        assert int(p_state.count) == int(state[0].count)
 
 
 @pytest.mark.parametrize("model", MODELS)
